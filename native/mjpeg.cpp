@@ -1,9 +1,9 @@
 // Baseline JPEG (JFIF) encoder for the MJPEG AVI video path.
 //
-// TPU-native counterpart of the reference's video post-process
-// (/root/reference/postprocess.cu:99-116), which hands GL frames to an
-// OpenCV cv::VideoWriter with the XVID codec.  TPU hosts have no GL, no
-// CUDA and no OpenCV, so compression is done here: each rendered frame is
+// Headless counterpart of the reference's video post-process
+// (postprocess.cu:99-116), which hands GL frames to an OpenCV
+// cv::VideoWriter with the XVID codec.  The simulator needs no GL and no
+// OpenCV, so compression is done here: each rendered frame is
 // encoded as a standalone baseline JPEG (4:4:4, standard Annex-K quant +
 // Huffman tables) and the Python AviWriter streams them into an 'MJPG'
 // RIFF container — a format every stock player opens, with no codec deps.

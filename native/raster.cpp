@@ -1,8 +1,8 @@
 // Native disk-splatting rasterizer for the headless renderer.
 //
-// TPU-native counterpart of the reference's GPU point-sprite renderer
-// (/root/reference/render.cpp + shaders.cpp): TPU hosts have no display or
-// GL stack, so frames are rasterized on the host CPU.  The hot loop — one
+// Headless counterpart of the reference's GPU point-sprite renderer
+// (render.cpp + shaders.cpp): the simulator needs no display or GL
+// stack, so frames are rasterized on the host CPU.  The hot loop — one
 // bounding-box scan per disk — lives here; Python falls back to a numpy
 // implementation when this library isn't built (see render/native.py).
 //

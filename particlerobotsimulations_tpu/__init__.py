@@ -1,13 +1,14 @@
-"""particlerobotsimulations_tpu — TPU-native particle-robot swarm simulator.
+"""particlerobotsimulations_tpu — JAX particle-robot swarm simulator.
 
 A from-scratch JAX/XLA re-design of richa-batra/ParticleRobotSimulations
 (CUDA/OpenGL): hundreds to tens of thousands of 2-D disk robots whose radii
 oscillate with a light-distance phase offset, producing swarm phototaxis,
 obstacle negotiation, dead-cell robustness and payload transport.
 
-Compute path: pure jitted JAX (VPU-vectorized masked pair forces, cell-table
-neighbor search), ``lax.scan`` step loops, ``vmap`` over scene batches and
-``shard_map`` over TPU meshes for Monte-Carlo sweeps.
+Compute path: jitted JAX (vectorized masked pair forces, cell-table
+neighbor search, a Pallas force kernel for the GPU), ``lax.scan`` step
+loops, ``vmap`` over scene batches and ``shard_map`` over device meshes for
+Monte-Carlo sweeps and sharded large scenes.
 """
 
 from .config import (

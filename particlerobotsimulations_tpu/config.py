@@ -1,6 +1,6 @@
 """Typed simulation parameters + ``.cfg`` loader.
 
-TPU-native re-design of the reference's config/flag system
+JAX re-design of the reference's config/flag system
 (/root/reference/main.cpp:594-816 ``setParam`` and the defaults at
 main.cpp:833-911).  Differences from the reference, on purpose:
 
@@ -54,19 +54,19 @@ class Control(enum.IntEnum):
 class ForceBackend(enum.IntEnum):
     """Which neighbor-force implementation the engine uses.
 
-    DENSE     masked O(N^2) pairwise forces — exact, best for <= ~2k bots.
+    DENSE     masked O(N^2) pairwise forces — exact, best for small swarms.
     CELLGRID  wrapped fixed-capacity cell table with explicit candidate
-              gathers (TPU analogue of the reference's uniform grid at
+              gathers (the reference's uniform grid at
               particlebot_kernel_impl.cuh:445-538, rebuilt every step instead
-              of the reference's stale-sort scheme).  Correct but
-              gather-bound on TPU; kept as a readable reference
-              implementation.
-    STENCIL   the same cell table computed as a dense 3x3 jnp.roll stencil —
-              zero gathers in the hot path (see ops/stencil.py).
-    PALLAS    the stencil as a hand-written VMEM-resident Pallas TPU kernel —
-              the production backend for large swarms on TPU
-              (see ops/pallas_stencil.py).
-    AUTO      pick per scenario size and platform.
+              of the reference's stale-sort scheme).  Kept as a readable
+              reference implementation.
+    STENCIL   the same cell table computed as a dense 3x3 jnp.roll stencil
+              (see ops/stencil.py) — the portable scalable path on the CPU.
+    PALLAS    the table-resident step loop (engine_table.py) with the
+              neighbour-force Pallas kernel (ops/pallas_stencil.py) — the
+              production backend for large swarms on the GPU.  The name
+              stays because user cfgs select it (``force_backend PALLAS``).
+    AUTO      pick per scenario size and platform (resolved_backend).
     """
 
     AUTO = 0
@@ -74,6 +74,17 @@ class ForceBackend(enum.IntEnum):
     CELLGRID = 2
     STENCIL = 3
     PALLAS = 4
+
+
+# AUTO's DENSE/PALLAS crossover on the GPU (SimParams.resolved_backend).
+# Measured on an H100 (HEX phototaxis, CHANGES.md): per step the table
+# loop beats DENSE at every size from 64 bots up, by ~16 us/step at 300-640
+# bots and ~80 us/step at 2000, but its program takes ~15 s longer to
+# compile.  Up to this size a reference-length run (example.cfg: 7200
+# sim-s, 720k steps) therefore finishes sooner on DENSE unless the compile
+# cache is warm; DENSE also has no cell grid for a LINE or GRID layout to
+# outgrow.
+GPU_DENSE_MAX_BOTS = 640
 
 
 _CONFIG_NAMES = {
@@ -170,7 +181,7 @@ class SimParams:
     display_interval: int = 600
     video_interval: int = 1
 
-    # --- TPU engine knobs (no reference equivalent) --------------------------
+    # --- engine knobs (no reference equivalent) ------------------------------
     force_backend: ForceBackend = ForceBackend.AUTO
     # Pair interaction cutoff.  The reference's 5x5-cell scan over a
     # 2*max_radius grid (particlebot_kernel_impl.cuh:691-699) reaches between
@@ -185,34 +196,37 @@ class SimParams:
     # particlebot_kernel_impl.cuh:114-120, but swarm-anchored) makes
     # stragglers safe: aliased far pairs are killed by the true-distance
     # cutoff.  0 => auto-size from the expected packed-blob diameter.
-    # Must be a multiple of 16 (keeps grid_dim^2 lane-tile aligned).
+    # Any size works: the force kernel's cell tile falls back to the
+    # largest power of two <= ops/pallas_stencil.TILE that divides the
+    # target window (an even grid_dim keeps the full tile).  The auto size
+    # is a multiple of 16, so 2, 4, 8 or 16 shards of the sharded table
+    # divide it as it is.
     grid_dim: int = 0
     cell_capacity: int = 16
-    # Spill sublanes above cell_capacity (table loop only): bots ranked
+    # Spill slots above cell_capacity (table loop only): bots ranked
     # past cell_capacity in an over-full cell live in these rows — active
     # (they integrate, actuate, count for phase/centroid) but invisible to
-    # the force kernel, and automatically re-promoted by the next
-    # compaction when their cell has room.  Without spill room, large
+    # the force kernel, and automatically re-promoted by the next slot
+    # rebuild when their cell has room.  Without spill room, large
     # compressed swarms (the occupancy tail pokes past capacity every few
-    # steps at 250k bots) force the expensive exact rebuild chronically.
-    # -1 => auto: 8 when n_cells > 100_000 else 0.  Multiple of 8.  The
-    # threshold is measured on reference-density HEX phototaxis (max real
-    # occupancy over 60k steps: 15/16 at 100k, exactly 16/16 at 131k —
-    # zero margin, so spill stays on past 100k); spill costs ~7% at 100k
-    # when unused (8 extra sublanes in every rebuild/tail op).  Scenarios
-    # that compress harder degrade gracefully without spill — exact
-    # -fallback rebuilds + the parking strip + the dump-time occupancy
-    # warning — and can set this key explicitly.
+    # steps at 250k bots) park bots in the forceless parking strip.
+    # -1 => auto: 8 when n_cells > 100_000 else 0.  The threshold is set
+    # from reference-density HEX phototaxis occupancy (max real occupancy
+    # over 60k steps: 15/16 at 100k, exactly 16/16 at 131k — zero margin,
+    # so spill stays on past 100k); unused spill rows still cost every
+    # rebuild and elementwise op.  Scenarios that compress harder degrade
+    # gracefully without spill — the parking strip + the dump-time
+    # occupancy warning — and can set this key explicitly.
     overflow_slots: int = -1
     # Rebuild the cell-slot assignment every N steps (PALLAS backend).  The
-    # argsort-based assignment costs ~1/3 of a 10k-bot step; bots drift
-    # ~5e-4 cells/step, so brief reuse cannot drop a contact unless a pair
+    # argsort-based assignment is the step's one sort; bots drift ~5e-4
+    # cells/step, so brief reuse cannot drop a contact unless a pair
     # closes > cell_size within the window (would need relative speed > 2.3
     # at the default 4).  The reference reuses its sort for sort_interval =
     # 180 s = 18000 steps (particlebot.cpp:256) with far weaker guarantees.
     # 1 = rebuild every step (exact).  -1 = AUTO: the base cadence 4, with
-    # SPEED-CERTIFIED adaptive doubling to 8 on large tables (n_cells >
-    # 100_000, where the rebuild share of the step is worth ~+10% at 1M):
+    # SPEED-CERTIFIED adaptive doubling to 8 on tables from 4096 bots up
+    # (adaptive_rebuild):
     # each chunk opens with a probe segment that measures an upper bound on
     # the max pair-closing speed (local 3x3-neighborhood velocity
     # envelopes, engine_table.neighbor_rel_speed_bound); K=8 runs only
@@ -281,24 +295,27 @@ class SimParams:
         return (self.nx + 1) * self.rise_period
 
     def resolved_backend(self) -> ForceBackend:
+        """AUTO resolution by platform: on the GPU, DENSE up to
+        GPU_DENSE_MAX_BOTS and the PALLAS table loop above; on the CPU,
+        DENSE up to 2048 bots and the XLA stencil above.  Any other
+        platform has no force path and raises."""
         if self.force_backend != ForceBackend.AUTO:
             return self.force_backend
-        # platform-dependent: the Pallas kernel needs a real TPU (Mosaic);
-        # elsewhere the XLA stencil is the portable scalable path
         import jax
 
-        if jax.default_backend() not in ("cpu",):
-            # measured crossover on v5e (round 3): DENSE wins to ~500
-            # bots (O(N^2) but one fused matmul-shaped pass), the Pallas
-            # table loop wins from ~700 up (36M vs 8M at 2k)
-            return (
-                ForceBackend.DENSE
-                if self.n_cells <= 640
-                else ForceBackend.PALLAS
-            )
-        if self.n_cells <= 2048:
-            return ForceBackend.DENSE
-        return ForceBackend.STENCIL
+        platform = jax.default_backend()
+        if platform == "gpu":
+            if self.n_cells <= GPU_DENSE_MAX_BOTS:
+                return ForceBackend.DENSE
+            return ForceBackend.PALLAS
+        if platform == "cpu":
+            if self.n_cells <= 2048:
+                return ForceBackend.DENSE
+            return ForceBackend.STENCIL
+        raise ValueError(
+            f"force_backend AUTO has no rule for platform {platform!r}: "
+            "the simulator runs on 'gpu' or 'cpu'"
+        )
 
     def validate(self) -> "SimParams":
         if self.n_cells < 1:
@@ -306,12 +323,12 @@ class SimParams:
         if len(self.rect_obstacles) > 10 or len(self.circle_obstacles) > 10:
             # The reference's __constant__ arrays hold at most 10 obstacles
             # (particlebot_kernel_impl.cuh:28-34).  We keep the limit for
-            # scenario parity; the TPU code itself has no such cap.
+            # scenario parity; the code itself has no such cap.
             raise ValueError("at most 10 obstacles of each kind")
         if self.min_radius <= 0 or self.max_radius < self.min_radius:
             raise ValueError("need 0 < min_radius <= max_radius")
-        if self.grid_dim < 0 or self.grid_dim % 16:
-            raise ValueError("grid_dim must be 0 (auto) or a positive multiple of 16")
+        if self.grid_dim < 0:
+            raise ValueError("grid_dim must be 0 (auto) or positive")
         if self.cell_capacity < 1:
             raise ValueError("cell_capacity must be >= 1")
         if self.slot_rebuild_steps < 1 and self.slot_rebuild_steps != -1:
@@ -324,8 +341,8 @@ class SimParams:
                 "world_half must be >= 0 (0 = auto-fit from the placement "
                 "extent, resolved by Simulation/initial_state_arrays)"
             )
-        if self.overflow_slots > 0 and self.overflow_slots % 8:
-            raise ValueError("overflow_slots must be -1 (auto) or a multiple of 8")
+        if self.overflow_slots < -1:
+            raise ValueError("overflow_slots must be -1 (auto) or >= 0")
         return self
 
     def resolved_overflow_slots(self) -> int:
@@ -346,14 +363,12 @@ class SimParams:
     def adaptive_rebuild(self) -> bool:
         """Whether the chunk driver should run the speed-certified adaptive
         rebuild cadence (K in {4, 8}).  Only in auto mode and only from 4k
-        bots up: measured K=8 wins are +4.6% at 4k (103.5M/s), +5.1% at
-        10k (117.7M/s) and +10.8% at 1M; below 4k the megakernel band
-        owns the floor and the rebuild share is too small to pay for the
-        probe segment."""
+        bots up: below that the rebuild is too small a share of the step
+        to pay for the probe segment."""
         return self.slot_rebuild_steps == -1 and self.n_cells >= 4096
 
     def storage_capacity(self) -> int:
-        """Table sublanes: force-visible capacity + spill rows."""
+        """Table slots per cell: force-visible capacity + spill rows."""
         return self.cell_capacity + self.resolved_overflow_slots()
 
     def resolved_grid_dim(self) -> int:
@@ -475,7 +490,7 @@ def params_from_dict(kv: dict, base: SimParams | None = None) -> SimParams:
         "display_shadow": ("display_shadow", _INT),
         "DISPLAY_INTERVAL": ("display_interval", _INT),
         "VIDEO_INTERVAL": ("video_interval", _INT),
-        # TPU-engine extensions
+        # engine extensions
         "force_backend": ("force_backend", lambda v: ForceBackend[v.upper()]),
         "neighbor_cutoff": ("neighbor_cutoff", _FLT),
         "grid_dim": ("grid_dim", _INT),
@@ -515,5 +530,6 @@ def round_up(x: int, m: int) -> int:
 
 
 def padded_n(params: SimParams, multiple: int = 128) -> int:
-    """Bot-array padding to a lane-friendly multiple (TPU lane width 128)."""
+    """Bot-array padding to a multiple of 128 (whole warps of 32 and
+    power-of-two-friendly shapes for the kernels)."""
     return round_up(params.n_cells, multiple)

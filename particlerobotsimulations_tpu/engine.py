@@ -1,6 +1,6 @@
 """Simulation engine: the jitted per-step pipeline and scan loop.
 
-TPU-native re-design of ``Particlebot::update``
+JAX re-design of ``Particlebot::update``
 (/root/reference/particlebot.cpp:170-300).  One ``step`` call is one physics
 step of ``timestep`` seconds; the op order matches the reference exactly:
 
@@ -56,7 +56,7 @@ def _collide_fn(params: SimParams, differentiable: bool = False) -> Callable:
         return cellgrid_collide
     if backend == ForceBackend.PALLAS:
         if differentiable:
-            # Mosaic forward + XLA-stencil backward (custom VJP)
+            # kernel forward + XLA-stencil backward (custom VJP)
             from .ops.pallas_stencil import make_diff_pallas_collide
 
             diff = make_diff_pallas_collide(params, params.timestep)
@@ -117,8 +117,8 @@ def make_step(
         batched runner computes them from scene 0's counter so they stay
         real ``lax.cond``s under vmap (per-scene predicates decay to
         selects that execute the phase noise draw, shadow raycast and dead
-        top_k every step and multiply TPU compile time).  Default: derived
-        from this state's own counter."""
+        top_k every step).  Default: derived from this state's own
+        counter."""
         mask = active_mask(params, n_pad)
         payload = payload_mask(params, n_pad)
         time = state.time(dt)
@@ -219,8 +219,8 @@ def make_step(
 # run_sweep invoked per robustness fraction, or twice in a process) would
 # re-trace and re-compile the whole chunk program.  The env knobs and the
 # resolved platform are part of the key because they change the traced
-# program (PBOT_MEGA/PBOT_DEFER/PBOT_UNROLL_BODY at make time; AUTO backend
-# resolution by platform).
+# program (PBOT_UNROLL_BODY at make time, the pair-math knobs at trace
+# time; AUTO backend resolution by platform).
 _RUN_CHUNK_CACHE: dict = {}
 
 
@@ -228,13 +228,9 @@ def _chunk_cache_key(kind: str, params: SimParams):
     return (
         kind,
         params,
-        os.environ.get("PBOT_MEGA"),
-        os.environ.get("PBOT_DEFER"),
-        os.environ.get("PBOT_GR"),
         os.environ.get("PBOT_UNROLL_BODY"),
         os.environ.get("PBOT_PAIRMATH"),
         os.environ.get("PBOT_MAGMIN"),
-        os.environ.get("PBOT_PRESHIFT"),
         # jax_platforms (not jax.default_backend()) keeps key construction
         # from initializing the JAX client as a side effect — a library
         # caller may still jax.config.update("jax_platforms", ...) after

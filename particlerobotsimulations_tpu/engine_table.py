@@ -1,30 +1,26 @@
 """Table-resident step loop for the PALLAS backend — the production hot path.
 
-Round-1 profiling (docs/RESULTS.md) showed the Pallas force kernel is only
-~1/3 of the step at 10k bots; the rest was per-step plumbing: the 8-wide row
-scatter into the cell table, the 4-wide row gather back, and the bot-order
-elementwise tail.  This module removes that plumbing from the per-step path
-entirely by keeping ALL simulation state resident in the slot-major cell
-table between slot rebuilds:
+All simulation state stays resident in the slot-major cell table between
+slot rebuilds, so the per-step path has no scatter into the table and no
+gather back:
 
 * state lives as flat ``(total_ext,)`` field arrays, where rows
-  ``[0, C*G*G)`` are the kernel's slot-major table and the trailing
-  ``n_pad`` rows are a parking strip for bots the table dropped (capacity
-  overflow / padding) — parked bots keep integrating, they just exert no
-  pair forces (same semantics as the bot-order engine's ``slot < total``
-  guard);
+  ``[0, C*G*G)`` are the slot-major table and the trailing ``n_pad`` rows
+  are a parking strip for bots the table dropped (capacity overflow /
+  padding) — parked bots keep integrating, they just exert no pair forces
+  (same semantics as the bot-order engine's ``slot < total`` guard);
 * phase / radius / integrate / friction run elementwise in table space
-  (they are per-bot laws — the empty slots just compute masked garbage,
-  which costs nothing at these sizes);
-* the force kernel consumes reshaped ``(C, G*G)`` views directly — no
-  scatter, no gather;
+  (they are per-bot laws — the empty slots just compute masked garbage);
+* the force pass (ops/pallas_stencil.table_forces) reads the flat field
+  arrays directly;
 * interval-gated ops (phase law every ``phase_update_interval``, centroid
   every ``centroid_int``, dead injection once) run under ``lax.cond`` so
   their cost is actually paid 1/1200 steps instead of being computed and
-  thrown away (the round-1 engine ``where``-selected them);
+  thrown away;
 * every ``slot_rebuild_steps`` the state is gathered to bot order with one
-  wide row gather, slots are reassigned (bbox re-anchor + argsort), and one
-  wide row scatter rebuilds the table.
+  wide row gather, slots are reassigned (bbox re-anchor + argsort — the
+  reference's calcHash + thrust sort, particlebot_cuda.cu:162-383), and
+  one wide row scatter rebuilds the table.
 
 Op order per step matches ``engine.make_step`` (and the reference,
 /root/reference/particlebot.cpp:170-300) exactly: dead injection, centroid
@@ -50,32 +46,23 @@ from .ops.forces import (
     friction_velocity_update_xy,
     obstacle_forces,
 )
+from .ops.grid import OFFSETS9, cell_origin
 from .ops.integrate import radius_integrate_planes
 from .ops.pallas_stencil import (
-    FIELDS as KERNEL_FIELDS,
-    _stencil_forces_pallas,
     assign_slots_slotmajor,
+    neighbor_lanes,
+    table_forces,
 )
 from .ops.phase import update_phase
 from .state import SimState, active_mask, payload_mask
 
-# flat table field order; the first 7 are the kernel's input planes.
-# "bid" stores each row's bot index (exact in f32 up to 2^24) so the
-# bot->row map can be reconstructed after incremental rebuilds shuffle rows.
+# flat table field order.  "bid" stores each row's bot index (exact in f32
+# up to 2^24) so the bot->row map can be reconstructed from the table.
 TABLE_FIELDS = (
-    "px", "py", "vx", "vy", "rad", "val", "afac",   # kernel inputs
-    "phase", "dead", "aa", "ar", "pay", "bid",      # carried per-bot state
+    "px", "py", "vx", "vy", "rad", "val", "afac",
+    "phase", "dead", "aa", "ar", "pay", "bid",
 )
-assert TABLE_FIELDS[: len(KERNEL_FIELDS)] == KERNEL_FIELDS
 N_TF = len(TABLE_FIELDS)
-
-# fields the incremental rebuild must physically move.  The rebuild runs
-# between integrate and collide, where aa/ar are dead values (collide
-# rewrites them immediately after in the new layout), and afac/pay are
-# pure functions of the bot id, re-derived from the moved bid plane.
-MOVE_FIELDS = (
-    "px", "py", "vx", "vy", "rad", "val", "phase", "dead", "bid",
-)
 
 
 class TableState(NamedTuple):
@@ -90,7 +77,7 @@ class TableState(NamedTuple):
 
 def _geometry(params: SimParams):
     """(table rows, table+parking rows, n_pad) — the table uses the STORAGE
-    capacity (force-visible cell_capacity + overflow spill sublanes)."""
+    capacity (force-visible cell_capacity + overflow spill slots)."""
     g = params.resolved_grid_dim()
     total = g * g * params.storage_capacity()
     n_pad = padded_n(params)
@@ -128,23 +115,11 @@ def _bot_rows(params: SimParams, state: SimState):
     )
 
 
-def _anchored_origin(params: SimParams, pos, mask) -> jax.Array:
-    """Grid anchor with an EDGE_MARGIN-cell offset so the blob sits away
-    from the wrapped edge columns (the incremental rebuild's linear lane
-    windows need those empty; see ops/table_rebuild.py)."""
-    from .ops.grid import cell_origin
-    from .ops.table_rebuild import EDGE_MARGIN
-
-    return cell_origin(params, pos, mask) - jnp.float32(
-        EDGE_MARGIN * params.cutoff()
-    )
-
-
 def enter_table(params: SimParams, state: SimState) -> TableState:
     """Scatter a bot-order SimState into table residency (chunk entry)."""
     _, total_ext, n_pad = _geometry(params)
     mask = active_mask(params, n_pad)
-    origin = _anchored_origin(params, state.pos, mask)
+    origin = cell_origin(params, state.pos, mask)
     slot, _ = assign_slots_slotmajor(
         params, state.pos, mask, origin=origin, cap=params.storage_capacity()
     )
@@ -197,19 +172,17 @@ def exit_table(params: SimParams, ts: TableState) -> SimState:
 
 
 def _rebuild_fields(params: SimParams, fields: dict):
-    """Exact full rebuild on a fields dict: re-anchor + argsort
-    reassignment via bot order.  Returns (new fields, new origin).
-
-    This is the fallback path (and the semantics anchor) for the cheap
-    incremental rebuild in ops/table_rebuild.py; the sharded table loop
-    (parallel/spatial_table.py) calls it replicated after an all-gather."""
+    """Full slot rebuild on a fields dict: re-anchor + argsort
+    reassignment via bot order.  Returns (new fields, new origin).  The
+    sharded table loop (parallel/spatial_table.py) calls it replicated
+    after an all-gather."""
     _, total_ext, n_pad = _geometry(params)
     slot = _slot_of_bot(params, fields)
     flat = jnp.stack([fields[k] for k in TABLE_FIELDS], axis=-1)
     rows = flat[slot]
     pos = rows[:, 0:2]
     mask = rows[:, 5] > 0.5
-    origin = _anchored_origin(params, pos, mask)
+    origin = cell_origin(params, pos, mask)
     new_slot, _ = assign_slots_slotmajor(
         params, pos, mask, origin=origin, cap=params.storage_capacity()
     )
@@ -219,84 +192,9 @@ def _rebuild_fields(params: SimParams, fields: dict):
 
 
 def _rebuild(params: SimParams, ts: TableState) -> TableState:
-    fields, origin = _rebuild_fields(params, ts.fields)
+    with jax.named_scope("slot_rebuild"):
+        fields, origin = _rebuild_fields(params, ts.fields)
     return ts._replace(fields=fields, origin=origin)
-
-
-def _payload_afac(params: SimParams, nval: jax.Array, bid: jax.Array):
-    """(pay, afac) planes from validity + bot id — THE payload attraction
-    law (reference factors at particlebot_kernel_impl.cuh:568-570), shared
-    by every relayout site (bot-order rebuild, single and batched megakernel
-    span glue) so a change lands everywhere at once."""
-    f32 = jnp.float32
-    nval_f = nval.astype(f32)
-    if params.has_payload:
-        is_pay = nval & (bid.astype(jnp.int32) == params.n_cells - 1)
-        pay = is_pay.astype(f32)
-        afac = jnp.where(
-            is_pay, f32(params.attraction_factor), f32(1.0)
-        ) * nval_f
-    else:
-        pay = jnp.zeros_like(nval_f)
-        afac = nval_f
-    return pay, afac
-
-
-def _derived_rows(params: SimParams, f: dict) -> dict:
-    """Recompute the bid-derived static fields after a slot relayout."""
-    f["pay"], f["afac"] = _payload_afac(params, f["val"] > 0.5, f["bid"])
-    return f
-
-
-def _smart_rebuild(params: SimParams, ts: TableState) -> TableState:
-    """Incremental compaction rebuild with exact fallback.
-
-    Between rebuilds bots move < 1 cell, so reassignment is a local stencil
-    compaction (ops/table_rebuild.py) — no sort, no random-index scatter.
-    Runs between integrate and collide, so only MOVE_FIELDS travel: aa/ar
-    are dead values there (collide rewrites them right after) and afac/pay
-    are re-derived from the moved bid plane.  Falls back to the argsort
-    rebuild when its preconditions fail (a >1-cell move, a cell over
-    capacity, or occupied edge columns); parked bots ride through
-    incrementals untouched and get reinstatement attempts at fallbacks
-    and chunk entries."""
-    from .ops.table_rebuild import incremental_rebuild
-
-    moved, ok = incremental_rebuild(
-        params, ts.fields, MOVE_FIELDS, ts.origin
-    )
-
-    def take_inc(t):
-        f = dict(t.fields)
-        f.update(moved)
-        return t._replace(fields=_derived_rows(params, f))
-
-    return jax.lax.cond(ok, take_inc, lambda t: _rebuild(params, t), ts)
-
-
-def _smart_rebuild_batched(params: SimParams, ts: TableState) -> TableState:
-    """Smart rebuild over a leading scene axis, with the incremental-vs
-    -exact ``lax.cond`` OUTSIDE the vmap: the incremental compaction runs
-    for every scene, and is taken for ALL scenes only when every scene's
-    preconditions held, else the exact rebuild runs for all (rare).  A per
-    -scene cond under vmap decays to a select that executes the expensive
-    exact fallback for every scene on every rebuild — measured 2.3x slower
-    per scene than the unbatched loop."""
-    from .ops.table_rebuild import incremental_rebuild
-
-    moved, ok = jax.vmap(
-        lambda f, o: incremental_rebuild(params, f, MOVE_FIELDS, o)
-    )(ts.fields, ts.origin)
-
-    def take_inc(t):
-        f = dict(t.fields)
-        f.update(moved)
-        return t._replace(fields=_derived_rows(params, f))
-
-    def take_exact(t):
-        return jax.vmap(lambda tt: _rebuild(params, tt))(t)
-
-    return jax.lax.cond(jnp.all(ok), take_inc, take_exact, ts)
 
 
 def _inject_dead_table(params: SimParams, f: dict, key: jax.Array) -> jax.Array:
@@ -332,8 +230,8 @@ def gate_seg(params: SimParams) -> int:
     step is the FIRST step of a ``seg``-step segment — so the chunk can
     scan over segments whose first step carries the traced conds and
     whose remaining ``seg - 1`` steps are statically ungated.  The cond
-    cost (measured ~6 µs/step at 10k bots even when no gate fires —
-    cond operands defeat XLA buffer reuse) then amortizes to 1/seg.
+    cost (paid even when no gate fires — cond operands defeat XLA buffer
+    reuse) then amortizes to 1/seg.
 
     Returns 0 when the fast path does not apply: a dead-injection step
     that is not seg-aligned, or a rebuild period that does not tile the
@@ -355,185 +253,17 @@ def gate_seg(params: SimParams) -> int:
 def _unroll_body_default(total_rows: int) -> bool:
     """Whether k-step rebuild blocks unroll their gateless steps inline.
 
-    Unrolling k force-kernel instances into one scan body multiplies XLA
-    compile time by the body size: fine to ~100k bots (gg*cap ~ 600k rows),
-    but minutes at 250k (1.4M rows).  Large tables use an inner scan for
-    the k-1 gateless steps instead — 2 step instances; the scan-boundary
-    cost (~7 us at 10k) is noise at those step times.  PBOT_UNROLL_BODY=0/1
-    forces either (A/B + small-table test coverage of the big-table path).
+    Unrolling k force-pass instances into one scan body multiplies XLA
+    compile time by the body size, which grows with the table.  Large
+    tables (> 2^20 rows) use an inner scan for the k-1 gateless steps
+    instead — 2 step instances; the scan-boundary cost is noise at those
+    step times.  PBOT_UNROLL_BODY=0/1 forces either (small-table test
+    coverage of the big-table path).
     """
     env = os.environ.get("PBOT_UNROLL_BODY", "")
     if env:
         return env != "0"
     return total_rows <= (1 << 20)
-
-
-def _make_deferred_seg(
-    k: int,
-    unroll_body: bool,
-    scan_unroll: int,
-    step_at,      # (ts, rebuild_gate, gated=...) -> ts
-    plain_u,      # gateless scan body
-    pre_nc,       # (ts) -> ts — step_pre with all gates statically off
-    rebuild_nc,   # (ts) -> (ts, ok) — UNCONDITIONAL incremental rebuild
-    post_nc,      # (ts) -> ts — step_post
-    block_at,     # (ts, first_gated) -> ts — regular k-step rebuild block
-):
-    """(GR, deferred_seg) — the deferred-fallback group schedule shared by
-    the single-scene and batched seg loops.
-
-    The per-block incremental-vs-exact rebuild cond costs ~7.2 us/step at
-    10k (its operands route the whole ~30 MB TableState per rebuild,
-    defeating buffer reuse) while exact fallbacks fire ~once per 4000
-    steps (measured 15/15000 rebuilds).  Groups of GR blocks run the
-    incremental UNCONDITIONALLY and AND the ok flags; ONE cond per group
-    adopts the group or redoes it from its entry state on the regular
-    ``block_at`` path.  Redo is bitwise the regular trajectory (the
-    re-run blocks take the same deterministic incrementals, then the same
-    exact fallback), and adopt is bitwise the cond-taken branch — so the
-    schedule is bitwise-identical to the legacy per-block-cond one.
-    Expected cost ~ 0.099*GR (redo) + 7.2/GR (cond) us/step at 10k ->
-    GR ~ 7-10; 7 divides the default 49 ublocks evenly.  The trajectory
-    is GR-invariant (adopt is the unconditional incrementals; redo
-    recomputes the identical deterministic blocks), so GR is a pure
-    perf/compile knob — ``PBOT_GR`` overrides for A/B runs.
-
-    The loops differ only in the injected hooks (vmapped pre/post and an
-    all-scenes ok reduction on the batched path)."""
-    GR = int(os.environ.get("PBOT_GR", "0")) or 7
-
-    def block_nc(carry, _):
-        """One k-step block whose rebuild is the unconditional
-        incremental (ok deferred to the group cond)."""
-        ts, okacc = carry
-        if k > 1:
-            if unroll_body:
-                for j in range(k - 1):
-                    ts = step_at(ts, False, gated=False)
-            else:
-                # all k-1 head steps are ungated -> ONE shared scan body
-                # (a standalone entry step instance would only bloat the
-                # large-table compile this path exists to contain)
-                ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 1)
-        ts = pre_nc(ts)
-        ts, ok = rebuild_nc(ts)
-        return (post_nc(ts), okacc & ok), None
-
-    def deferred_groups(ts: TableState, n_groups: int):
-        def group(ts, _):
-            (out, okall), _ = jax.lax.scan(
-                block_nc, (ts, jnp.asarray(True)), None, length=GR
-            )
-
-            def redo(t0, o):
-                del o
-
-                def rb(t, _):
-                    return block_at(t, False), None
-
-                t0, _ = jax.lax.scan(rb, t0, None, length=GR)
-                return t0
-
-            ts = jax.lax.cond(okall, lambda t0, o: o, redo, ts, out)
-            return ts, None
-
-        ts, _ = jax.lax.scan(group, ts, None, length=n_groups)
-        return ts
-
-    def deferred_seg(ts: TableState, bps: int) -> TableState:
-        """regular_seg with the ublocks' rebuild conds deferred to one
-        cond per GR-block group; bitwise-identical schedule."""
-        ts = block_at(ts, True)
-        n_groups, rem = divmod(bps - 1, GR)
-        if n_groups:
-            ts = deferred_groups(ts, n_groups)
-        if rem:
-            def ublock(ts, _):
-                return block_at(ts, False), None
-
-            ts, _ = jax.lax.scan(
-                ublock, ts, None, length=rem, unroll=scan_unroll
-            )
-        return ts
-
-    return GR, deferred_seg
-
-
-def _make_mega_glue(params: SimParams):
-    """(mega_pack, mega_unpack, incremental_packed) for ONE scene — the
-    glue around the megakernel span (ops/megakernel.py).
-
-    The batched loop applies ``jax.vmap`` to these directly: stacking /
-    reshaping / concatenating under vmap produces exactly the
-    (B, N_TF, ...) layouts its span kernel consumes, so the glue (and any
-    fix to the plane regrouping) exists once."""
-    total_m, _, n_pad_m = _geometry(params)
-    g_m = params.resolved_grid_dim()
-    cap_m = params.storage_capacity()
-    s_sub = n_pad_m // 128
-
-    # TABLE_FIELDS layout: px0 py1 vx2 vy3 rad4 val5 afac6 phase7
-    # dead8 aa9 ar10 pay11 bid12 — MOVE_FIELDS are rows [0:6]+[7:9]
-    # +[12], so the packed rebuild slices/concats whole plane groups
-    assert TABLE_FIELDS[:6] + TABLE_FIELDS[7:9] + TABLE_FIELDS[
-        12:13
-    ] == MOVE_FIELDS
-
-    def mega_pack(fields):
-        tbl = jnp.stack(
-            [
-                fields[kf][:total_m].reshape(cap_m, g_m * g_m)
-                for kf in TABLE_FIELDS
-            ]
-        )
-        strip = jnp.stack(
-            [fields[kf][total_m:].reshape(s_sub, 128) for kf in TABLE_FIELDS]
-        )
-        return tbl, strip
-
-    def mega_unpack(tbl, strip):
-        return {
-            kf: jnp.concatenate(
-                [tbl[j].reshape(total_m), strip[j].reshape(n_pad_m)]
-            )
-            for j, kf in enumerate(TABLE_FIELDS)
-        }
-
-    def incremental_packed(tbl, origin):
-        """Unconditional incremental rebuild on the megakernel's stacked
-        (N_TF, C, gg) planes — no flat-layout round trip, no exact-fallback
-        cond (a per-span cond measured 1.4 us/step at 1k; the seg loop
-        instead ANDs the returned ``ok`` flags and redoes the WHOLE segment
-        on the regular path when any span's preconditions failed — see
-        seg_body).  When ``ok`` is False the returned planes are garbage
-        the caller must discard; all indexing is lane-structural, so
-        nothing escapes.  The parking strip passes through untouched (its
-        rows don't move, and its derived pay/afac already satisfy their
-        val/bid invariant, so the regular path's full-array _derived_rows
-        recompute is a value-level no-op there)."""
-        from .ops.table_rebuild import incremental_rebuild_planes
-
-        planes = jnp.concatenate([tbl[0:6], tbl[7:9], tbl[12:13]], axis=0)
-        new_planes, ok = incremental_rebuild_planes(
-            params, planes, MOVE_FIELDS, origin
-        )
-        pay, afac = _payload_afac(params, new_planes[5] > 0.5, new_planes[8])
-        # aa/ar (rows 9:11) stay unmoved: they are dead values between
-        # integrate and collide (collide rewrites them)
-        new_tbl = jnp.concatenate(
-            [
-                new_planes[0:6],
-                afac[None],
-                new_planes[6:8],
-                tbl[9:11],
-                pay[None],
-                new_planes[8:9],
-            ],
-            axis=0,
-        )
-        return new_tbl, ok
-
-    return mega_pack, mega_unpack, incremental_packed
 
 
 def make_table_step_parts(params: SimParams, phase_fn=None):
@@ -543,10 +273,8 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     integrate (the step counter is NOT bumped); ``step_post`` runs collide
     + friction and bumps the counter.  The slot rebuild slots between the
     two — ``make_table_step`` composes them for the single-scene loop,
-    while the batched loop hoists the rebuild OUT of ``vmap`` so its
-    incremental-vs-exact ``lax.cond`` keeps a scalar predicate (a batched
-    predicate decays to a select that runs the expensive exact fallback
-    for every scene every rebuild).
+    while the batched loop vmaps them and runs the rebuild between them,
+    so a traced rebuild gate keeps a scalar predicate.
 
     ``phase_fn`` (optional) replaces the phase-gate body: called as
     ``phase_fn(fields, val_mask, key) -> new phase plane`` inside the
@@ -558,11 +286,12 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     params = params.validate()
     dt = params.timestep
     g, cap = params.resolved_grid_dim(), params.cell_capacity
+    gg = g * g
     total, total_ext, _ = _geometry(params)
-    # the force kernel sees only the first cell_capacity sublanes: in the
+    # the force pass sees only the first cell_capacity slots: in the
     # slot-major layout (rank * G*G + lane) those are the first
     # cap * G*G flat rows; spill rows above them exert no pair forces
-    force_total = g * g * cap
+    force_total = gg * cap
     f32 = jnp.float32
     cog_gate_steps = params.centroid_steps_interval
 
@@ -578,8 +307,8 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
         also be the python bool ``False``: the op is then statically absent
         from this step instance — the segment-aligned chunk loop uses this
         to keep traced conds out of the hot scan body entirely (a traced
-        cond costs ~µs/step in defeated buffer reuse even when it never
-        fires; measured round 3, see make_run_chunk_table)."""
+        cond routes its operands through the branch and defeats buffer
+        reuse even when it never fires)."""
         f = dict(ts.fields)
         time = ts.step.astype(f32) * f32(dt)
         step_key = jax.random.fold_in(ts.key, ts.step)
@@ -628,8 +357,7 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
 
         # 4+5. radius controller (previous step's force magnitudes) +
         #    integrate/boundary in component form (the flat px/py planes
-        #    never interleave into (n, 2) on the per-step path) — shared
-        #    with the megakernel's in-kernel pre
+        #    never interleave into (n, 2) on the per-step path)
         f = radius_integrate_planes(params, f, time)
 
         return ts._replace(fields=f, centroid_ring=ring)
@@ -637,16 +365,9 @@ def make_table_step_parts(params: SimParams, phase_fn=None):
     def step_post(ts: TableState) -> TableState:
         f = dict(ts.fields)
 
-        # 7. collide: kernel reads the (C, G*G) views directly
-        #    (a window-tile force kernel was prototyped and dropped: +2.4%
-        #    at 10k, VMEM-OOM above ~16k bots — see CLAUDE.md)
-        tables = {
-            k: f[k][:force_total].reshape(cap, g * g) for k in KERNEL_FIELDS
-        }
-        # edge_guarded: the table's anchoring invariant (EDGE_MARGIN plus
-        # the rebuild's margin-1 fallback) keeps wrapped edge columns
-        # empty, so the preshift can skip its x-wrap fix rolls
-        fx, fy, fa, fr = _stencil_forces_pallas(params, tables, True)
+        # 7. collide: the force pass reads the flat field arrays directly
+        with jax.named_scope("table_forces"):
+            fx, fy, fa, fr = table_forces(params, f, g, g, gg, 0, gg)
         pad = total_ext - force_total  # spill rows + parking get zero force
         zpad = jnp.zeros((pad,), f32)
         fxf = jnp.concatenate([fx.reshape(force_total), zpad])
@@ -696,14 +417,13 @@ def make_table_step(params: SimParams, phase_fn=None):
         # be a STATIC python bool: the run-chunk loop unrolls blocks of
         # k steps whose last step always rebuilds, because a traced
         # lax.cond here routes the whole TableState through the branch
-        # and costs ~13 us/step at 10k bots even when it never fires
-        # (measured round 3: cond-operand copies defeat buffer reuse).
+        # even when it never fires.
         if rebuild_gate is True:
-            ts = _smart_rebuild(params, ts)
+            ts = _rebuild(params, ts)
         elif rebuild_gate is not False:
             ts = jax.lax.cond(
                 rebuild_gate,
-                lambda t: _smart_rebuild(params, t),
+                lambda t: _rebuild(params, t),
                 lambda t: t,
                 ts,
             )
@@ -712,205 +432,62 @@ def make_table_step(params: SimParams, phase_fn=None):
     return step
 
 
-def make_run_chunk_table(params: SimParams, phase_fn=None):
-    """Drop-in replacement for engine.make_run_chunk on the PALLAS backend:
-    ``run_chunk(state, n_steps, seg_aligned=False) -> state`` with
-    table-resident stepping.
+def _chunk_schedule(step_at, step_of, k: int, seg: int, unroll_body: bool,
+                    scan_unroll: int):
+    """(run, block_at): the rebuild/gate schedule of a table-loop chunk,
+    shared by the single-scene and batched loops, which differ only in
+    ``step_at(ts, rebuild_gate, gated=True)`` (one physics step; the
+    rebuild gate is a static bool or a traced scalar) and ``step_of(ts)``
+    (the scalar step counter).
 
-    ``seg_aligned`` (static) asserts that ``state.step`` is a multiple of
-    ``gate_seg(params)`` (the gcd of all interval-gate periods, 200 steps
-    at reference defaults).  The chunk then scans gate segments: only the
-    FIRST step of each segment carries the traced interval conds, the
-    other ``seg-1`` step instances are statically ungated — interval
-    semantics are bit-identical (non-seg-multiple steps can never fire a
-    gate) but the measured ~6 µs/step cond-presence cost at 10k bots
-    amortizes to 1/200.  Callers must pass True only when the entry step
-    really is seg-aligned (Simulation.run checks host-side).
-
-    ``phase_fn`` is the packed-sweep phase hook (see
-    make_table_step_parts); it only ever runs inside gated step
-    instances, so the megakernel span path and the deferred-rebuild
-    machinery are untouched by it."""
-    params = params.validate()
-    step = make_table_step(params, phase_fn)
-    step_pre_f, step_post_f = make_table_step_parts(params, phase_fn)
-    k = max(1, params.resolved_slot_rebuild_steps())
-    seg = gate_seg(params)
-
-    # small-table megakernel: whole ungated rebuild-to-rebuild spans as
-    # ONE pallas call (ops/megakernel.py) — removes the ~30-tiny-op
-    # dispatch floor that dominates the step below ~4k bots.  Only the
-    # seg loop's ungated blocks use it; gated steps stay here, and the
-    # slot rebuild runs BETWEEN spans on the regular _smart_rebuild path
-    # (the spans are phase-shifted around it — see the module docstring).
-    from .ops.megakernel import mega_eligible
-
-    use_mega = mega_eligible(params)
-    if use_mega:
-        from .ops.megakernel import make_mega_span
-
-        mega = make_mega_span(params, _geometry(params)[2])
-        mega_pack, mega_unpack, _incremental_packed = _make_mega_glue(params)
-
-    # blocks of k steps whose LAST step rebuilds statically (no traced
-    # rebuild cond in the scan body — see the note in make_table_step).
-    # The schedule is chunk-relative: chunk entry re-anchors + reassigns
-    # anyway, so assignment staleness stays <= k-1 steps regardless of the
-    # chunk's starting step.  Unrolled only for small k; a huge k (exact
-    # per-chunk mode or ablations) scans single no-rebuild steps instead.
+    Blocks of k steps whose LAST step rebuilds statically (no traced
+    rebuild cond in the scan body — see the note in make_table_step).  The
+    schedule is chunk-relative: chunk entry re-anchors + reassigns anyway,
+    so assignment staleness stays <= k-1 steps regardless of the chunk's
+    starting step.  Unrolled only for small k; a huge k (exact per-chunk
+    mode or ablations) scans single steps with a traced rebuild gate."""
     unroll_blocks = 1 < k <= 8
-    total_rows = _geometry(params)[0]
-    unroll_body = _unroll_body_default(total_rows)
-    # small tables are dominated by fixed per-step costs (op dispatch, scan
-    # boundary): unroll the gateless inner scan to amortize them.  Larger
-    # tables gain nothing (measured at 10k) and only pay compile time.
-    scan_unroll = 4 if total_rows <= (1 << 13) else 1
 
-    @functools.partial(jax.jit, static_argnums=(1, 2), donate_argnums=0)
-    def run_chunk(
-        state: SimState, n_steps: int, seg_aligned: bool = False
-    ) -> SimState:
-        ts = enter_table(params, state)
+    def plain(ts, _):
+        return step_at(ts, False), None
 
-        def step_at(ts: TableState, rebuild_gate, gated: bool = True):
-            gates = _gates(params, ts.step) if gated else (False, False, False)
-            return step(ts, *gates, rebuild_gate)
+    def plain_u(ts, _):
+        return step_at(ts, False, gated=False), None
 
-        def plain(ts: TableState, _):
-            return step_at(ts, False), None
-
-        def plain_u(ts: TableState, _):
-            return step_at(ts, False, gated=False), None
-
-        def block_at(ts: TableState, first_gated: bool) -> TableState:
-            """One k-step rebuild block; only its first step (a potential
-            gate step in the segment schedule) checks the interval conds."""
-            if unroll_body:
-                for j in range(k):
-                    ts = step_at(ts, j == k - 1, gated=first_gated and j == 0)
-            elif k > 1 and not first_gated:
-                # ungated block: fold the entry step into the inner scan —
-                # one fewer compiled step instance per large-table body
-                ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 1)
+    def block_at(ts, first_gated: bool):
+        """One k-step rebuild block; only its first step (a potential gate
+        step in the segment schedule) checks the interval conds."""
+        if unroll_body:
+            for j in range(k):
+                ts = step_at(ts, j == k - 1, gated=first_gated and j == 0)
+        elif k > 1 and not first_gated:
+            # ungated block: fold the entry step into the inner scan — one
+            # fewer compiled step instance per large-table body
+            ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 1)
+            ts = step_at(ts, True, gated=False)
+        else:
+            ts = step_at(ts, k == 1, gated=first_gated)
+            if k > 1:
+                if k > 2:
+                    ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 2)
                 ts = step_at(ts, True, gated=False)
-            else:
-                ts = step_at(ts, k == 1, gated=first_gated)
-                if k > 1:
-                    if k > 2:
-                        ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 2)
-                    ts = step_at(ts, True, gated=False)
-            return ts
+        return ts
 
+    def run(ts, n_steps: int, seg_aligned: bool):
         use_seg = seg_aligned and seg > 0 and (k == 1 or unroll_blocks)
         n_segs, n_rem = divmod(n_steps, seg) if use_seg else (0, n_steps)
         if n_segs:
             bps = seg // k
 
-            def mega_prefix(ts: TableState) -> TableState:
-                """The segment's gated k-step block MINUS its final post,
-                ending after pre + rebuild of step s+k-1: the post of
-                that (ungated) step is carried by the first span's head,
-                which keeps the kernel loop body unpredicated."""
-                for j in range(k - 1):
-                    ts = step_at(ts, False, gated=(j == 0))
-                g_pre = (
-                    _gates(params, ts.step)
-                    if k == 1
-                    else (False, False, False)
-                )
-                ts = step_pre_f(ts, *g_pre)
-                return _smart_rebuild(params, ts)
+            def ublock(ts, _):
+                return block_at(ts, False), None
 
-            def regular_seg(ts: TableState) -> TableState:
+            def seg_body(ts, _):
                 ts = block_at(ts, True)
                 if bps > 1:
-                    def ublock(ts, _):
-                        return block_at(ts, False), None
-
                     ts, _ = jax.lax.scan(
-                        ublock, ts, None, length=bps - 1,
-                        unroll=scan_unroll,
+                        ublock, ts, None, length=bps - 1, unroll=scan_unroll
                     )
-                return ts
-
-            def rebuild_nc(ts: TableState):
-                from .ops.table_rebuild import incremental_rebuild
-
-                moved, ok = incremental_rebuild(
-                    params, ts.fields, MOVE_FIELDS, ts.origin
-                )
-                f = dict(ts.fields)
-                f.update(moved)
-                return ts._replace(fields=_derived_rows(params, f)), ok
-
-            GR, deferred_seg = _make_deferred_seg(
-                k, unroll_body, scan_unroll, step_at, plain_u,
-                lambda ts: step_pre_f(ts, False, False, False),
-                rebuild_nc, step_post_f, block_at,
-            )
-            use_defer = (
-                bps - 1 >= GR
-                and (k == 1 or unroll_blocks)
-                and os.environ.get("PBOT_DEFER", "1") != "0"
-            )
-
-            def seg_body(ts: TableState, _):
-                if not (bps > 1 and use_mega):
-                    if use_defer:
-                        return deferred_seg(ts, bps), None
-                    return regular_seg(ts), None
-                tsp = mega_prefix(ts)
-
-                def spans(tsp):
-                    # the incremental rebuild never re-anchors, so origin
-                    # is loop-invariant across the spans (closure, not
-                    # carry)
-                    origin0 = tsp.origin
-
-                    def span_block(carry, _):
-                        """One ungated span through the megakernel — post
-                        of the previous block's last step (whose rebuild
-                        the caller just performed), k-1 full steps, pre
-                        of this block's last step — then the
-                        unconditional incremental rebuild slotted between
-                        the span's final pre and the next span's head
-                        post, exactly where the regular path performs
-                        it.  The per-span ``ok`` flags AND into the
-                        carry; the seg end adopts or redoes."""
-                        tbl, strip, stp, okall = carry
-                        t2, s2 = mega(tbl, strip, stp)
-                        tb, ok = _incremental_packed(t2, origin0)
-                        return (tb, s2, stp + k, okall & ok), None
-
-                    tbl, strip = mega_pack(tsp.fields)
-                    (tbl, strip, stp2, okall), _ = jax.lax.scan(
-                        span_block,
-                        (tbl, strip, tsp.step + 1, jnp.asarray(True)),
-                        None,
-                        length=bps - 1,
-                    )
-                    # the spans are phase-shifted: the last one ended
-                    # mid-step stp2 - 1 (after pre + rebuild); its post
-                    # runs on the regular path, completing the segment
-                    t = tsp._replace(
-                        fields=mega_unpack(tbl, strip),
-                        step=stp2 - 1,
-                    )
-                    return step_post_f(t), okall
-
-                out, okall = spans(tsp)
-                # deferred fallback: a failed incremental precondition at
-                # ANY span poisons the rest of the segment with garbage
-                # (structurally safe, numerically meaningless) — redo the
-                # whole segment on the regular path, whose _smart_rebuild
-                # handles the exact fallback per rebuild.  Costs one cond
-                # per SEGMENT instead of one per span (1.4 us/step at 1k).
-                ts = jax.lax.cond(
-                    okall,
-                    lambda t0, o: o,
-                    lambda t0, o: regular_seg(t0),
-                    ts, out,
-                )
                 return ts, None
 
             ts, _ = jax.lax.scan(seg_body, ts, None, length=n_segs)
@@ -919,14 +496,14 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
         # per-step gates
         if n_rem:
             if k == 1:
-                def body(ts: TableState, _):
+                def body(ts, _):
                     return step_at(ts, True), None
 
                 ts, _ = jax.lax.scan(body, ts, None, length=n_rem)
             elif unroll_blocks:
                 n_blocks, rem = divmod(n_rem, k)
 
-                def block(ts: TableState, _):
+                def block(ts, _):
                     if unroll_body:
                         for j in range(k):
                             ts = step_at(ts, j == k - 1)
@@ -940,23 +517,61 @@ def make_run_chunk_table(params: SimParams, phase_fn=None):
                 if rem:
                     ts, _ = jax.lax.scan(plain, ts, None, length=rem)
             else:
-                # k > 8: keep the traced-cond schedule (absolute-step gate);
+                # k > 8: traced rebuild gate on the absolute step;
                 # unrolling such blocks would bloat the compiled body
-                def body(ts: TableState, _):
-                    return step_at(ts, ts.step % k == k - 1), None
+                def body(ts, _):
+                    return step_at(ts, step_of(ts) % k == k - 1), None
 
                 ts, _ = jax.lax.scan(body, ts, None, length=n_rem)
+        return ts
+
+    return run, block_at
+
+
+def make_run_chunk_table(params: SimParams, phase_fn=None):
+    """Drop-in replacement for engine.make_run_chunk on the PALLAS backend:
+    ``run_chunk(state, n_steps, seg_aligned=False) -> state`` with
+    table-resident stepping.
+
+    ``seg_aligned`` (static) asserts that ``state.step`` is a multiple of
+    ``gate_seg(params)`` (the gcd of all interval-gate periods, 200 steps
+    at reference defaults).  The chunk then scans gate segments: only the
+    FIRST step of each segment carries the traced interval conds, the
+    other ``seg-1`` step instances are statically ungated — interval
+    semantics are bit-identical (non-seg-multiple steps can never fire a
+    gate) and the cond-presence cost amortizes to 1/seg.  Callers must
+    pass True only when the entry step really is seg-aligned
+    (Simulation.run checks host-side).
+
+    ``phase_fn`` is the packed-sweep phase hook (see
+    make_table_step_parts); it only ever runs inside gated step
+    instances."""
+    params = params.validate()
+    step = make_table_step(params, phase_fn)
+    k = max(1, params.resolved_slot_rebuild_steps())
+    seg = gate_seg(params)
+    total_rows = _geometry(params)[0]
+    unroll_body = _unroll_body_default(total_rows)
+    # small tables are dominated by fixed per-step costs (launches, scan
+    # boundary): unroll the gateless inner scan to amortize them.  Larger
+    # tables only pay compile time for it.
+    scan_unroll = 4 if total_rows <= (1 << 13) else 1
+
+    def step_at(ts: TableState, rebuild_gate, gated: bool = True):
+        gates = _gates(params, ts.step) if gated else (False, False, False)
+        return step(ts, *gates, rebuild_gate)
+
+    schedule, _ = _chunk_schedule(
+        step_at, lambda ts: ts.step, k, seg, unroll_body, scan_unroll
+    )
+
+    @functools.partial(jax.jit, static_argnums=(1, 2), donate_argnums=0)
+    def run_chunk(
+        state: SimState, n_steps: int, seg_aligned: bool = False
+    ) -> SimState:
+        ts = schedule(enter_table(params, state), n_steps, seg_aligned)
         return exit_table(params, ts)
 
-    # path identity, driver/test-visible: which internal schedule this
-    # runner was BUILT to take (the megakernel span path is a build-time
-    # decision — __graft_entry__.dryrun_multichip asserts it and proves a
-    # deliberate PBOT_MEGA=0 de-eligibling changes the executed path)
-    run_chunk.path_info = {
-        "use_mega": use_mega,
-        "gate_seg": seg,
-        "slot_rebuild_steps": k,
-    }
     return run_chunk
 
 
@@ -1012,30 +627,28 @@ def neighbor_rel_speed_bound(params: SimParams, fields: dict) -> jax.Array:
     contact margin is stated in.
 
     Per-cell [min, max] velocity envelopes over occupied rows (incl. spill
-    sublanes), widened to the 3x3 window with the same flat lane rolls the
-    preshift uses, then ``max over cells of hypot(dvx, dvy)``: for ANY two
-    bots i, j within a window, ``closing(i,j) = (v_i - v_j) . n <=
-    |v_i - v_j| <= hypot(dvx, dvy)`` of that window.  Parked bots are
-    excluded (they exert/feel no pair forces by construction).  Cost: a
-    few plane reductions + 8 rolls of (G*G,) vectors — noise next to one
-    force-kernel call."""
-    from .ops.grid import OFFSETS9
-    from .ops.pallas_stencil import _preshift_flat
-
+    slots), widened to the 3x3 window with the same wrapped neighbour
+    lanes the force pass reads, then ``max over cells of hypot(dvx,
+    dvy)``: for ANY two bots i, j within a window, ``closing(i,j) = (v_i -
+    v_j) . n <= |v_i - v_j| <= hypot(dvx, dvy)`` of that window.  Parked
+    bots are excluded (they exert/feel no pair forces by construction).
+    Cost: a few plane reductions + 8 gathers of (G*G,) vectors."""
     g = params.resolved_grid_dim()
     gg = g * g
+    lane = jnp.arange(gg, dtype=jnp.int32)
     total = gg * params.storage_capacity()
     val = fields["val"][:total].reshape(-1, gg) > 0.5
     big = jnp.float32(1.0e9)
     dvs = []
     for comp in ("vx", "vy"):
         v = fields[comp][:total].reshape(-1, gg)
-        cmax = jnp.max(jnp.where(val, v, -big), axis=0)[None]   # (1, gg)
-        cmin = jnp.min(jnp.where(val, v, big), axis=0)[None]
+        cmax = jnp.max(jnp.where(val, v, -big), axis=0)   # (gg,)
+        cmin = jnp.min(jnp.where(val, v, big), axis=0)
         wmax, wmin = cmax, cmin
         for dx, dy in OFFSETS9[1:]:
-            wmax = jnp.maximum(wmax, _preshift_flat(cmax, g, dx, dy))
-            wmin = jnp.minimum(wmin, _preshift_flat(cmin, g, dx, dy))
+            nl = neighbor_lanes(lane, g, g, dx, dy)
+            wmax = jnp.maximum(wmax, cmax[nl])
+            wmin = jnp.minimum(wmin, cmin[nl])
         # windows with < 2 bots leave +-big sentinels -> clamp at 0
         dvs.append(jnp.maximum(wmax - wmin, 0.0))
     return jnp.max(jnp.sqrt(dvs[0] * dvs[0] + dvs[1] * dvs[1]))
@@ -1062,31 +675,20 @@ def make_probe_chunk(params: SimParams, phase_fn=None):
         )
     unroll_body = _unroll_body_default(_geometry(params)[0])
 
+    def step_at(ts, rebuild, gated=True):
+        gates = _gates(params, ts.step) if gated else (False, False, False)
+        return step(ts, *gates, rebuild)
+
+    # the production chunk's k-step block: only a segment's first step
+    # carries the traced conds
+    _, kblock = _chunk_schedule(
+        step_at, lambda ts: ts.step, k, seg, unroll_body, 1
+    )
+
     @functools.partial(jax.jit, donate_argnums=0)
     def probe_chunk(state: SimState):
         ts = enter_table(params, state)
         pm = neighbor_rel_speed_bound(params, ts.fields)
-
-        def step_at(ts, rebuild, gated):
-            gates = _gates(params, ts.step) if gated else (False, False, False)
-            return step(ts, *gates, rebuild)
-
-        def plain_u(ts, _):
-            return step_at(ts, False, False), None
-
-        def kblock(ts, gated_entry):
-            # mirrors run_chunk's block_at: only a segment's first step
-            # carries the traced conds
-            if unroll_body:
-                for j in range(k):
-                    ts = step_at(ts, j == k - 1, gated=gated_entry and j == 0)
-            else:
-                ts = step_at(ts, k == 1, gated=gated_entry)
-                if k > 1:
-                    if k > 2:
-                        ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 2)
-                    ts = step_at(ts, True, gated=False)
-            return ts
 
         ts = kblock(ts, True)
         pm = jnp.maximum(pm, neighbor_rel_speed_bound(params, ts.fields))
@@ -1119,8 +721,8 @@ def make_adaptive_run_chunk(params: SimParams, phase_fn=None):
     defaults) — a geometry-derived certificate that uncovered pairs can
     neither reach contact nor be owed more than 1% of the plateau magnet
     force within the doubled window.  The probe scalar is fetched LAZILY
-    at the next chunk boundary, so the host round-trip (~24 ms on the
-    relay) overlaps the chunk's own compute instead of serializing it;
+    at the next chunk boundary, so the host round-trip overlaps the
+    chunk's own compute instead of serializing it;
     detection latency is therefore one chunk, against a margin stated for
     worst-case closing over 8 steps and measured 2.7-3.2 u/s in steady
     phototaxis (10k) vs 20+ during transients.
@@ -1200,224 +802,30 @@ def make_run_chunk_table_batched(params: SimParams):
     venter = jax.vmap(lambda s: enter_table(params, s))
     vexit = jax.vmap(lambda t: exit_table(params, t))
     # gates stay unmapped scalars -> real conds inside the vmapped halves;
-    # the rebuild runs BETWEEN the vmapped halves so its incremental-vs
-    # -exact cond stays scalar (see _smart_rebuild_batched)
+    # the rebuild runs BETWEEN the vmapped halves so a traced rebuild gate
+    # (k > 8) stays a scalar cond
     vpre = jax.vmap(step_pre, in_axes=(0, None, None, None))
     vpost = jax.vmap(step_post)
-    unroll_blocks = 1 < k <= 8
+    vrebuild = jax.vmap(lambda t: _rebuild(params, t))
     unroll_body = _unroll_body_default(_geometry(params)[0])
 
-    seg = gate_seg(params)
+    def step_at(ts: TableState, rebuild, gated: bool = True):
+        gates = _gates(params, ts.step[0]) if gated else (False, False, False)
+        ts = vpre(ts, *gates)
+        if rebuild is True:
+            ts = vrebuild(ts)
+        elif rebuild is not False:
+            ts = jax.lax.cond(rebuild, vrebuild, lambda t: t, ts)
+        return vpost(ts)
 
-    # batched megakernel: vmap the rebuild-to-rebuild span (one pallas
-    # grid iteration per scene) and run the between-span rebuild with the
-    # incremental-vs-exact cond OUTSIDE the vmap, mirroring
-    # _smart_rebuild_batched — same span decomposition as the
-    # single-scene loop above
-    from .ops.megakernel import mega_eligible
-
-    use_mega = mega_eligible(params)
-    if use_mega:
-        from .ops.megakernel import make_mega_span
-
-        vmega = jax.vmap(
-            make_mega_span(params, _geometry(params)[2]), in_axes=(0, 0, None)
-        )
-        # the batched glue is literally the single-scene glue vmapped over
-        # the scene axis: stacking/reshaping under vmap yields exactly the
-        # (B, N_TF, ...) layouts vmega consumes (see _make_mega_glue)
-        _pack1, _unpack1, _inc1 = _make_mega_glue(params)
-        mega_pack_b = jax.vmap(_pack1)
-        mega_unpack_b = jax.vmap(_unpack1)
-
-        def _incremental_packed_b(tbl, origin):
-            """Per-scene incremental rebuild; the seg loop ANDs the ok
-            flags and redoes the whole segment on the regular batched path
-            when ANY scene's span failed (a per-scene cond under vmap
-            decays to a select that runs the exact fallback every rebuild;
-            a per-span cond costs 1.4 us/step — see the single-scene
-            loop)."""
-            new_tbl, ok = jax.vmap(_inc1)(tbl, origin)
-            return new_tbl, jnp.all(ok)
+    schedule, _ = _chunk_schedule(
+        step_at, lambda ts: ts.step[0], k, gate_seg(params), unroll_body, 1
+    )
 
     @functools.partial(jax.jit, static_argnums=(1, 2), donate_argnums=0)
     def run_chunk(
         state: SimState, n_steps: int, seg_aligned: bool = False
     ) -> SimState:
-        ts = venter(state)
+        return vexit(schedule(venter(state), n_steps, seg_aligned))
 
-        def step_at(ts: TableState, rebuild: bool, gated: bool = True):
-            gates = (
-                _gates(params, ts.step[0]) if gated else (False, False, False)
-            )
-            ts = vpre(ts, *gates)
-            if rebuild:
-                ts = _smart_rebuild_batched(params, ts)
-            return vpost(ts)
-
-        def plain(ts: TableState, _):
-            return step_at(ts, False), None
-
-        def plain_u(ts: TableState, _):
-            return step_at(ts, False, gated=False), None
-
-        def block_at(ts: TableState, first_gated: bool) -> TableState:
-            if unroll_body:
-                for j in range(k):
-                    ts = step_at(ts, j == k - 1, gated=first_gated and j == 0)
-            elif k > 1 and not first_gated:
-                # fold the ungated entry step into the inner scan (see the
-                # single-scene loop)
-                ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 1)
-                ts = step_at(ts, True, gated=False)
-            else:
-                ts = step_at(ts, k == 1, gated=first_gated)
-                if k > 1:
-                    if k > 2:
-                        ts, _ = jax.lax.scan(plain_u, ts, None, length=k - 2)
-                    ts = step_at(ts, True, gated=False)
-            return ts
-
-        use_seg = seg_aligned and seg > 0 and (k == 1 or unroll_blocks)
-        n_segs, n_rem = divmod(n_steps, seg) if use_seg else (0, n_steps)
-        if n_segs:
-            bps = seg // k
-
-            def mega_prefix(ts: TableState) -> TableState:
-                """Gated entry block minus its final post (see the
-                single-scene loop) — lockstep scenes, scene-0 gates."""
-                for j in range(k - 1):
-                    ts = step_at(ts, False, gated=(j == 0))
-                g_pre = (
-                    _gates(params, ts.step[0])
-                    if k == 1
-                    else (False, False, False)
-                )
-                ts = vpre(ts, *g_pre)
-                return _smart_rebuild_batched(params, ts)
-
-            def regular_seg(ts: TableState) -> TableState:
-                ts = block_at(ts, True)
-                if bps > 1:
-                    def ublock(ts, _):
-                        return block_at(ts, False), None
-
-                    ts, _ = jax.lax.scan(ublock, ts, None, length=bps - 1)
-                return ts
-
-            # batched twin of the single-scene deferred schedule:
-            # _smart_rebuild_batched's all-scenes cond still routes the
-            # whole batched TableState per block; the hooks vmap the
-            # incremental and AND the ok flags across scenes.
-            def rebuild_nc(ts: TableState):
-                from .ops.table_rebuild import incremental_rebuild
-
-                moved, ok = jax.vmap(
-                    lambda f, o: incremental_rebuild(
-                        params, f, MOVE_FIELDS, o
-                    )
-                )(ts.fields, ts.origin)
-                f = dict(ts.fields)
-                f.update(moved)
-                return (
-                    ts._replace(fields=_derived_rows(params, f)),
-                    jnp.all(ok),
-                )
-
-            GR, deferred_seg = _make_deferred_seg(
-                k, unroll_body, 1, step_at, plain_u,
-                lambda ts: vpre(ts, False, False, False),
-                rebuild_nc, vpost, block_at,
-            )
-            use_defer = (
-                bps - 1 >= GR
-                and (k == 1 or unroll_blocks)
-                and os.environ.get("PBOT_DEFER", "1") != "0"
-            )
-
-            def seg_body(ts: TableState, _):
-                if not (bps > 1 and use_mega):
-                    if use_defer:
-                        return deferred_seg(ts, bps), None
-                    return regular_seg(ts), None
-                tsp = mega_prefix(ts)
-
-                def spans(tsp):
-                    origin0 = tsp.origin
-
-                    def span_block(carry, _):
-                        tbl, strip, stp, okall = carry
-                        t2, s2 = vmega(tbl, strip, stp)
-                        tb, ok = _incremental_packed_b(t2, origin0)
-                        return (tb, s2, stp + k, okall & ok), None
-
-                    tbl, strip = mega_pack_b(tsp.fields)
-                    (tbl, strip, stp2, okall), _ = jax.lax.scan(
-                        span_block,
-                        (tbl, strip, tsp.step[0] + 1, jnp.asarray(True)),
-                        None,
-                        length=bps - 1,
-                    )
-                    t = tsp._replace(
-                        fields=mega_unpack_b(tbl, strip),
-                        step=jnp.broadcast_to(stp2 - 1, tsp.step.shape),
-                    )
-                    return vpost(t), okall
-
-                out, okall = spans(tsp)
-                # deferred fallback: redo the whole segment on the
-                # regular batched path if any scene's span rebuild failed
-                ts = jax.lax.cond(
-                    okall,
-                    lambda t0, o: o,
-                    lambda t0, o: regular_seg(t0),
-                    ts, out,
-                )
-                return ts, None
-
-            ts, _ = jax.lax.scan(seg_body, ts, None, length=n_segs)
-
-        if n_rem:
-            if k == 1:
-                def body(ts: TableState, _):
-                    return step_at(ts, True), None
-
-                ts, _ = jax.lax.scan(body, ts, None, length=n_rem)
-            elif unroll_blocks:
-                n_blocks, rem = divmod(n_rem, k)
-
-                def block(ts: TableState, _):
-                    if unroll_body:
-                        for j in range(k):
-                            ts = step_at(ts, j == k - 1)
-                    else:
-                        ts, _ = jax.lax.scan(plain, ts, None, length=k - 1)
-                        ts = step_at(ts, True)
-                    return ts, None
-
-                if n_blocks:
-                    ts, _ = jax.lax.scan(block, ts, None, length=n_blocks)
-                if rem:
-                    ts, _ = jax.lax.scan(plain, ts, None, length=rem)
-            else:
-                # k > 8: traced rebuild cond on a scalar gate, outside vmap
-                def body(ts: TableState, _):
-                    s0 = ts.step[0]
-                    ts = vpre(ts, *_gates(params, s0))
-                    ts = jax.lax.cond(
-                        s0 % k == k - 1,
-                        lambda t: _smart_rebuild_batched(params, t),
-                        lambda t: t,
-                        ts,
-                    )
-                    return vpost(ts), None
-
-                ts, _ = jax.lax.scan(body, ts, None, length=n_rem)
-        return vexit(ts)
-
-    run_chunk.path_info = {
-        "use_mega": use_mega,
-        "gate_seg": seg,
-        "slot_rebuild_steps": k,
-    }
     return run_chunk

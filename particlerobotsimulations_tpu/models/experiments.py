@@ -1,7 +1,7 @@
 """Canned paper experiments.
 
 The Nature 2019 paper's headline studies, reproduced as Monte-Carlo sweep
-harnesses over the TPU mesh (reference scenarios: examples/*.cfg; the
+harnesses over the device mesh (reference scenarios: examples/*.cfg; the
 reference itself runs one seed per process and leaves aggregation to the
 user).  Each experiment returns plain numpy results ready for plotting or
 CSV export.

@@ -1,6 +1,6 @@
 """Contact + magnet + obstacle forces and stick-slip friction.
 
-TPU-native re-derivation of the reference's hot loop #1, ``collideD``
+Re-derivation of the reference's hot loop #1, ``collideD``
 (/root/reference/particlebot_kernel_impl.cuh:540-831).  Instead of one CUDA
 thread per bot scanning 25 grid cells, forces are computed as masked
 vectorized pair interactions (dense O(N^2) here; the scalable cell-table
@@ -219,112 +219,6 @@ def obstacle_forces(
     return force, mag_r
 
 
-def obstacle_forces_xy(
-    params: SimParams,
-    px: jax.Array,
-    py: jax.Array,
-    vx: jax.Array,
-    vy: jax.Array,
-    rad: jax.Array,
-):
-    """Component-form obstacle contact forces: (fx, fy, repulsive magnitude).
-
-    Same physics and branch semantics as ``obstacle_forces``
-    (particlebot_kernel_impl.cuh:703-798), with px/py/vx/vy kept as separate
-    planes so the table-resident megakernel (ops/megakernel.py) never has to
-    interleave its (C, G*G) field planes into (n, 2) arrays — a layout that
-    maps terribly onto TPU lanes (minor dim 2).  Values agree with
-    ``obstacle_forces`` to float32 fusion differences (~1 ulp)."""
-    f32 = jnp.float32
-    fx = jnp.zeros_like(px)
-    fy = jnp.zeros_like(py)
-    mag_r = jnp.zeros_like(px)
-
-    def norm2(x, y):
-        return jnp.sqrt(jnp.maximum(x * x + y * y, f32(1.0e-30)))
-
-    def dem(dirx, diry, overlap, hit):
-        rvx, rvy = -vx, -vy
-        vn = rvx * dirx + rvy * diry
-        tanx = rvx - vn * dirx
-        tany = rvy - vn * diry
-        ffx = (
-            -2.0 * f32(params.spring) * overlap * dirx
-            + f32(params.damping) * rvx
-            + f32(params.shear) * tanx
-        )
-        ffy = (
-            -2.0 * f32(params.spring) * overlap * diry
-            + f32(params.damping) * rvy
-            + f32(params.shear) * tany
-        )
-        return (
-            jnp.where(hit, ffx, 0.0),
-            jnp.where(hit, ffy, 0.0),
-            jnp.where(hit, norm2(ffx, ffy), 0.0),
-        )
-
-    for cx, cy, cr in params.circle_obstacles:
-        tcx = f32(cx) - px
-        tcy = f32(cy) - py
-        d2 = tcx * tcx + tcy * tcy
-        hit = d2 < (rad + f32(cr)) ** 2
-        inv = 1.0 / jnp.maximum(norm2(tcx, tcy), f32(_EPS))
-        dirx = tcx * inv
-        diry = tcy * inv
-        overlap = rad + f32(cr) - jnp.sqrt(jnp.maximum(d2, f32(_EPS)))
-        a, b, m = dem(dirx, diry, overlap, hit)
-        fx, fy, mag_r = fx + a, fy + b, mag_r + m
-
-    for x1, x2, y1, y2 in params.rect_obstacles:
-        x1, x2, y1, y2 = f32(x1), f32(x2), f32(y1), f32(y2)
-        in_y = (py > y1) & (py < y2)
-        in_x = (px > x1) & (px < x2)
-
-        left = in_y & (px > x1 - rad) & (px < x2 - rad)
-        right = in_y & (px < x2 + rad) & (px > x1 + rad)
-        bottom = ~in_y & in_x & (py > y1 - rad) & (py < y2 - rad)
-        top = ~in_y & in_x & (py < y2 + rad) & (py > y1 + rad)
-
-        zeros = jnp.zeros_like(px)
-        ones = jnp.ones_like(px)
-        side_hit = left | right | bottom | top
-        sdx, sdy = ones, zeros
-        side_over = px - x1 + rad
-        for cond, dxs, dys, o in (
-            (right, -ones, zeros, -px + x2 + rad),
-            (bottom, zeros, ones, py - y1 + rad),
-            (top, zeros, -ones, -py + y2 + rad),
-        ):
-            sdx = jnp.where(cond, dxs, sdx)
-            sdy = jnp.where(cond, dys, sdy)
-            side_over = jnp.where(cond, o, side_over)
-
-        corner_hit = jnp.zeros_like(in_y)
-        cdx = zeros
-        cdy = zeros
-        corner_over = zeros
-        for corx, cory in ((x2, y2), (x1, y2), (x1, y1), (x2, y1)):
-            dvx = px - corx
-            dvy = py - cory
-            d = norm2(dvx, dvy)
-            hit_c = (d < rad) & ~in_y & ~in_x & ~corner_hit
-            inv = 1.0 / jnp.maximum(d, f32(_EPS))
-            cdx = jnp.where(hit_c, -dvx * inv, cdx)
-            cdy = jnp.where(hit_c, -dvy * inv, cdy)
-            corner_over = jnp.where(hit_c, rad - d, corner_over)
-            corner_hit = corner_hit | hit_c
-
-        hit = side_hit | corner_hit
-        dirx = jnp.where(side_hit, sdx, cdx)
-        diry = jnp.where(side_hit, sdy, cdy)
-        overlap = jnp.where(side_hit, side_over, corner_over)
-        a, b, m = dem(dirx, diry, overlap, hit)
-        fx, fy, mag_r = fx + a, fy + b, mag_r + m
-
-    return fx, fy, mag_r
-
-
 def friction_velocity_update_xy(
     params: SimParams,
     vx: jax.Array,
@@ -422,8 +316,8 @@ def dense_collide(
 ):
     """Full collide pass with dense masked O(N^2) pairs.
 
-    Exact for any bot count; preferred below ~4k bots where the (N, N)
-    pairwise tensors stay cheap on the VPU.  Returns
+    Exact for any bot count; preferred for small swarms, where the (N, N)
+    pairwise tensors stay cheap.  Returns
     (new_vel, abs_force_a, abs_force_r) in the reference's semantics
     (particlebot_kernel_impl.cuh:657-831).
     """

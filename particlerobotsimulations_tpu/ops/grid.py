@@ -1,14 +1,14 @@
 """Cell-table neighbor search — the scalable force backend for 10k+ bots.
 
-TPU analogue of the reference's uniform-grid pipeline
+XLA analogue of the reference's uniform-grid pipeline
 (calcHashD -> thrust sort -> reorderDataAndFindCellStartD -> collideD 5x5
 scan, /root/reference/particlebot_cuda.cu:162-383 and
 particlebot_kernel_impl.cuh:445-538, 691-699), re-designed for XLA:
 
 * The reference sorts only every ``sort_interval`` (180 s) and compensates
   for the stale ordering with a 5x5-cell scan.  Rebuilding every step is
-  cheap on TPU (one ``argsort`` of N keys) and strictly *more* accurate, so
-  we do that and scan only 3x3 cells of size ``cutoff``.
+  one ``argsort`` of N keys and strictly *more* accurate, so we do that
+  and scan only 3x3 cells of size ``cutoff``.
 * Instead of variable-length cell buckets (dynamic shapes), bots are
   scattered into a fixed-capacity index table ``(grid_dim^2, cell_capacity)``
   — all shapes static, fully vectorized, no data-dependent control flow.
@@ -37,7 +37,7 @@ from .forces import (
 
 
 # the full 3x3 neighborhood (dx, dy), center first — shared by the
-# pallas-stencil candidate blocks and the compaction-rebuild mover offsets
+# force kernel, its jnp twin and the cadence probe's velocity envelopes
 OFFSETS9 = (
     (0, 0),
     (1, 0), (-1, 0), (0, 1), (0, -1),
@@ -74,7 +74,7 @@ def cell_ids(
     particlebot_kernel_impl.cuh:114-120) keeps stragglers safe — aliased
     far-apart pairs are eliminated by the true-distance cutoff.  An explicit
     ``origin`` pins the anchor (the table loop keeps it fixed per chunk so
-    incremental rebuilds see consistent lane arithmetic).
+    every rebuild of a chunk sees consistent lane arithmetic).
     """
     g = params.resolved_grid_dim()
     h = jnp.float32(params.cutoff())
@@ -89,7 +89,7 @@ def cell_ids(
 def rank_cells(cid: jax.Array, g: int, cap: int):
     """Sort bots by cell id and rank each within its cell's run.
 
-    The shared core of every slot-table build (the TPU equivalent of the
+    The shared core of every slot-table build (the equivalent of the
     reference's calcHash -> thrust::sort -> findCellStart pipeline,
     particlebot_kernel_impl.cuh:445-538): a stable argsort groups bots by
     cell, then rank = position within the group.  Returns

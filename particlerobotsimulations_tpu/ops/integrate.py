@@ -53,8 +53,8 @@ def integrate(
 def radius_integrate_planes(params: SimParams, f: dict, time) -> dict:
     """Radius controller + integrate/boundary on a dict of flat component
     planes (keys rad/phase/aa/ar/dead/val/px/py/vx/vy) — the table-resident
-    form shared by engine_table.step_pre and the megakernel's in-kernel
-    ``pre`` so the reference-parity op order (particlebot.cpp:170-300:
+    form shared by engine_table.step_pre and the sharded table loop so the
+    reference-parity op order (particlebot.cpp:170-300:
     radius update from the PREVIOUS step's force magnitudes, then
     position integrate with the ±world_half clamp and boundary_damping
     velocity flip) lives in exactly one place.  Mutates and returns f.

@@ -1,43 +1,41 @@
-"""Pallas TPU kernel for the neighbor-force stencil — the speed-of-light path.
+"""Neighbor-force pass on the slot-major cell table: a Pallas kernel for the
+GPU (Triton route) and its plain-jnp twin.
 
-The XLA stencil backend (ops/stencil.py) is algorithmically right but XLA
-materializes the (G, G, C, C) pair intermediates to HBM (~1.8 GB/step at 10k
-bots, measured 2.2 ms).  This kernel keeps everything VMEM-resident and fuses
-the force accumulation down to the VPU flop floor.
+The table holds every field as slot-major rows: row ``slot * stride +
+lane``, where ``lane = y * G + x`` is a cell of the wrapped, bbox-anchored
+grid and ``slot`` is the bot's rank inside its cell (occupied slots are a
+prefix of each cell; empty rows are all zero, so ``rad > 0`` is the
+occupancy flag).
 
-Design (v4, roll-free + Newton's 3rd law):
+The kernel follows the reference's ``collideD``
+(reference particlebot_kernel_impl.cuh:657-700): one program per
+tile of ``TILE`` cells; every target slot of the tile scans the 3x3
+neighbouring cells' slots straight from the un-shifted table (the
+neighbour lane is computed with the exact 2-D wrap) and accumulates only
+its OWN (fx, fy, |fa|, |fr|).  No reaction is written to another bot, so
+there are no reaction planes to realign and the same kernel serves the
+sharded table's halo-extended call (parallel/spatial_table.py), whose
+targets are a window of a wider array.  Each program bounds its candidate
+loop by the highest occupied slot of the neighbour cells in its tile and
+skips every offset when the tile holds no target, which XLA cannot do.
 
-* Fields live in slot-major tables (C, G*G): capacity slots on sublanes,
-  cells (row-major, wrapped, bbox-anchored) on lanes.
-* The 3x3-cell neighborhood collapses to FIVE candidate blocks via Newton's
-  third law: center, E(+1,0), N(0,+1), NE(+1,+1), SE(+1,-1).  Each block is
-  pre-shifted in XLA with an exact 2-D wrap (cheap contiguous rolls), so the
-  kernel does zero data movement.
-* Slot pairing is a broadcast, not a roll: targets (C, 1, L) against
-  candidates (1, C, L) give all C x C slot pairs per cell as one fused
-  elementwise evaluation (C, C, L).  Forces on targets reduce over the
-  candidate axis; Newton reactions (-f) reduce over the *target* axis, which
-  lands them already aligned to candidate slots — the only realignment left
-  is the per-block cell offset, done with one jnp.roll outside the kernel.
-* The center block computes all ordered in-cell pairs directly (diagonal
-  masked), so it needs no reaction.
-* The lane axis is chunked by the pallas grid; cross-lane communication is
-  zero inside the kernel (all shifts pre-applied), so chunking is safe.
+``table_forces_jnp`` computes the same 9-block pair math as broadcast
+(C, C, cells) blocks left to XLA: the reference for the tests and the
+plain version the kernel is measured against.
 
 Pair physics constants match collideSpheres
-(/root/reference/particlebot_kernel_impl.cuh:540-594) exactly; see
+(reference particlebot_kernel_impl.cuh:540-594) exactly; see
 ops/forces.py for the annotated scalar form.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import SimParams
 from .forces import (
@@ -50,29 +48,27 @@ from .forces import (
 )
 from .grid import OFFSETS9, cell_ids, rank_cells
 
-# field order in the stacked kernel input
-FIELDS = ("px", "py", "vx", "vy", "rad", "val", "afac")
-N_FIELDS = len(FIELDS)
+# Cells per kernel program (a power of two; the largest power of two
+# <= TILE dividing the target window is used) and warps per program.
+# Chosen on an H100 by scripts/force_ab.py tiles: two cells on two warps
+# keep each (C, C, TILE) pair temporary at 8 registers per thread and beat
+# (4, 4) and (8, 8) at 10k and 131k bots (CHANGES.md).
+TILE = 2
+NUM_WARPS = 2
 
-# candidate cell offsets (dx, dy): center + the Newton half-set
-OFFSETS = ((0, 0), (1, 0), (0, 1), (1, 1), (1, -1))
-N_BLOCKS = len(OFFSETS)
 
-# OFFSETS9 (imported from .grid): the full 3x3 neighborhood — the non-Newton
-# form used by the sharded-table force pass (no reactions means nothing to
-# send back across shards)
+def interpret_mode() -> bool:
+    """Whether Pallas kernels run in interpret mode: on the CPU only, where
+    the tests run them.  Every other platform compiles them for the card."""
+    return jax.default_backend() == "cpu"
 
-# 128-lane tiles: finest skip granularity for the occupancy gate (empty
-# tiles skip ALL pair math).  Measured at 10k/100k bots: 128 beats 256/384
-# by 9-19% — the skip rate outweighs the extra grid steps.
-LANE_CHUNK = 128
 
-# preshift/realign formulation: "flat" moves data with flat lane rolls on
-# the native (C, G*G) layout plus an edge-column select for the x-wrap;
-# "3d" reshapes to (C, G, G) and rolls the cell axes (the round-1/2 form —
-# on TPU the G-lane minor dim pads to 128 and each reshape is a relayout
-# copy).  Values produced are identical; env knob kept for A/B timing.
-_PRESHIFT_MODE = os.environ.get("PBOT_PRESHIFT", "flat")
+def kernel_fields(params: SimParams) -> tuple:
+    """Field planes the force pass reads.  ``val`` is recomputed as
+    ``rad > 0``; without a payload every bot's attraction factor is 1, so
+    ``afac`` equals ``val`` and is not read either."""
+    base = ("px", "py", "vx", "vy", "rad")
+    return base + ("afac",) if params.has_payload else base
 
 
 def _magmin_ok(params: SimParams) -> bool:
@@ -99,89 +95,20 @@ def _magmin_ok(params: SimParams) -> bool:
     )
 
 
-def _lane_x(g: int, gg: int) -> jax.Array:
-    """(gg,) int32: x coordinate of each flat cell lane (cell = y*G + x)."""
-    return jax.lax.broadcasted_iota(jnp.int32, (gg, 1), 0).reshape(gg) % g
+def neighbor_lanes(lane: jax.Array, g: int, rows: int, dx: int, dy: int):
+    """Lane of the cell (x + dx, y + dy) for each lane ``y * g + x`` of an
+    array of ``rows`` grid rows, wrapped exactly in both axes."""
+    x = jax.lax.rem(lane, g)
+    y = jax.lax.div(lane, g)
+    return jax.lax.rem(y + (dy + rows), rows) * g + jax.lax.rem(x + (dx + g), g)
 
 
-def _preshift_flat(
-    stacked: jax.Array, g: int, dx: int, dy: int, wrap_fix: bool = True
-) -> jax.Array:
-    """out[..., y*G+x] = stacked[..., ((y+dy)%G)*G + (x+dx)%G] via flat
-    lane rolls: a y-shift is exactly a flat roll by dy*G (row wrap == grid
-    wrap), and a dx = +-1 x-shift is a flat roll by dx that is wrong only
-    on one edge column (x == G-1 for +1, x == 0 for -1), fixed with a
-    second roll + lane select.
-
-    ``wrap_fix=False`` drops the fix roll + select: the edge column then
-    reads a neighbor-row cell instead of the wrapped one.  This is exact
-    whenever the wrapped edge columns (x == 0 and x == G-1) hold no bots —
-    the table loop's anchoring invariant (enter_table/_rebuild anchor the
-    blob EDGE_MARGIN=2 cells in, and the incremental rebuild's edge guard
-    falls back before any bot reaches margin 1, ops/table_rebuild.py), so
-    mis-wrapped candidates always carry val == 0 and every pair term they
-    touch is exactly 0.0 either way."""
-    gg = stacked.shape[-1]
-    if dx == 0 and dy == 0:
-        return stacked
-    main = jnp.roll(stacked, -(dy * g + dx), axis=-1)
-    if dx == 0 or not wrap_fix:
-        return main
-    if dx == 1:
-        fix = jnp.roll(stacked, -(dy * g + dx - g), axis=-1)
-        return jnp.where(_lane_x(g, gg) == g - 1, fix, main)
-    assert dx == -1
-    fix = jnp.roll(stacked, -(dy * g + dx + g), axis=-1)
-    return jnp.where(_lane_x(g, gg) == 0, fix, main)
-
-
-def _realign_flat(
-    r: jax.Array, g: int, dx: int, dy: int, wrap_fix: bool = True
-) -> jax.Array:
-    """Inverse move for Newton reactions: the reaction computed at cell s
-    for the candidate block (dx, dy) belongs at cell s + (dy, dx).
-    ``wrap_fix=False`` as in _preshift_flat: reactions that would x-wrap
-    belong to edge-column candidates, which are all-zero under the table
-    loop's anchoring invariant."""
-    gg = r.shape[-1]
-    main = jnp.roll(r, dy * g + dx, axis=-1)
-    if dx == 0 or not wrap_fix:
-        return main
-    fix = jnp.roll(r, dy * g + dx - g, axis=-1)
-    return jnp.where(_lane_x(g, gg) < dx, fix, main)
-
-
-def assign_slots_slotmajor(params: SimParams, pos, mask, origin=None, cap=None):
-    """(n_pad,) flat slot per bot in the (C, G*G) slot-major layout:
-    ``slot = rank * G*G + cell_id`` (rank = index within the cell).
-    Out-of-range value G*G*C marks dropped bots (padding / overflow).
-    ``cap`` defaults to the force-visible cell capacity; the table loop
-    passes its storage capacity (incl. overflow spill sublanes)."""
-    g = params.resolved_grid_dim()
-    cap = cap if cap is not None else params.cell_capacity
-    n = pos.shape[0]
-    cid = cell_ids(params, pos, mask, origin=origin)
-    order, scid, rank, in_range, overflow = rank_cells(cid, g, cap)
-    keep = in_range & (rank < cap)
-    slot_sorted = jnp.where(keep, rank * (g * g) + scid, g * g * cap)
-    slot = jnp.zeros((n,), jnp.int32).at[order].set(slot_sorted)
-    return slot, overflow
-
-
-def _pair_block(
-    params: SimParams, t, c, self_block: bool, cap: int,
-    newton_center: bool = True,
-):
-    """Fused pair forces for one candidate block.
-
-    t: dict of (C, 1, L) target fields; c: dict of (1, C, L) candidates.
-    Returns (fx, fy, ma, mc) of shape (C, C, L) — target slot x candidate
-    slot x cell.  Identical math to ops/forces.py::pair_forces but
-    rsqrt-first (float32 agrees to ~1 ulp).  ``newton_center`` selects the
-    center block's pair set: strict upper triangle (Newton kernel — the
-    reaction covers the lower half) or all off-diagonal ordered pairs
-    (non-Newton kernel).
-    """
+def _pair_terms(params: SimParams, t: dict, c: dict, pair_mask=None):
+    """Fused pair forces of targets ``t`` against candidates ``c`` (dicts of
+    broadcast-compatible field arrays; ``val`` and ``afac`` included).
+    Returns (fx, fy, ma, mc) in the broadcast shape.  Identical math to
+    ops/forces.py::pair_forces but rsqrt-first (float32 agrees to ~1 ulp).
+    ``pair_mask`` (bool) excludes pairs, e.g. a slot with itself."""
     f32 = jnp.float32
     eps = f32(1.0e-12)
     legacy = os.environ.get("PBOT_PAIRMATH", "") == "legacy"
@@ -192,7 +119,7 @@ def _pair_block(
     else:
         # + eps^2 instead of max(., eps^2): bitwise-identical for every
         # real pair (d2 ~ 1e-3 ULP-absorbs 1e-24) and equal at the
-        # degenerate d2 == 0 point; one fewer vector op per block
+        # degenerate d2 == 0 point; one fewer vector op per pair
         d2 = dx * dx + dy * dy + eps * eps
     inv_dist = jax.lax.rsqrt(d2)
     dist = d2 * inv_dist
@@ -201,15 +128,8 @@ def _pair_block(
 
     cd = t["rad"] + c["rad"]
     valid = t["val"] * c["val"]
-    if self_block:
-        # Newton inside the cell too: evaluate only the strict upper
-        # triangle of the (C, C) slot pairs — the reaction sum lands on
-        # candidate slots in the SAME lane, so unlike the shifted blocks
-        # it needs no realign at all (applied directly in the kernel)
-        ti = jax.lax.broadcasted_iota(jnp.int32, (cap, cap, 1), 0)
-        ci = jax.lax.broadcasted_iota(jnp.int32, (cap, cap, 1), 1)
-        pair_set = (ti < ci) if newton_center else (ti != ci)
-        valid = valid * pair_set.astype(jnp.float32)
+    if pair_mask is not None:
+        valid = jnp.where(pair_mask, valid, 0.0)
     is_overlap = dist < cd
     overlap = jnp.where(is_overlap, valid, 0.0)
     attract = jnp.where(
@@ -222,11 +142,13 @@ def _pair_block(
     tx = rvx - vn * nx
     ty = rvy - vn * ny
 
-    spring = f32(params.spring)
+    # the spring constant is negated on the host: a negated literal does
+    # not lower on the Triton route
+    neg_spring = f32(-params.spring)
     damping = f32(params.damping)
     shear = f32(params.shear)
-    fcx = -spring * (cd - dist) * nx + damping * rvx + shear * tx
-    fcy = -spring * (cd - dist) * ny + damping * rvy + shear * ty
+    fcx = neg_spring * (cd - dist) * nx + damping * rvx + shear * tx
+    fcy = neg_spring * (cd - dist) * ny + damping * rvy + shear * ty
 
     gap = dist - cd
     if params.has_payload or legacy:
@@ -236,8 +158,7 @@ def _pair_block(
         # rows), so attr folds to the scalar: the valid factor re-enters
         # through the `attract` mask on every output that uses mag, and
         # invalid pairs' mag stays finite (inv2 <= attraction/eps^2 ~
-        # 2.5e24 < f32 max) so `0 * mag == 0` — outputs bitwise-identical,
-        # two fewer vector muls per block
+        # 2.5e24 < f32 max) so `0 * mag == 0` — outputs bitwise-identical
         attr = f32(params.attraction)
     i1, i2, mina = f32(MAGNET_INT1), f32(MAGNET_INT2), f32(MAGNET_MIN_ATTR)
     ramp = mina + (attr * f32(1.0 / (MAGNET_INT2 * MAGNET_INT2)) - mina) * f32(
@@ -250,24 +171,17 @@ def _pair_block(
         # (where it equals the guarded form bitwise); for gap <= 0 it may
         # be inf, which the select discards without arithmetic.
         # FORWARD-ONLY: differentiating this branch would hit where's
-        # 0*inf/NaN cotangent poisoning (the repo's documented pathology,
-        # models/optimize.py) — the differentiable path pulls gradients
-        # through ops/stencil.py instead (make_diff_pallas_collide); any
-        # future direct-VJP of this kernel must use PBOT_PAIRMATH=legacy
-        # or a guarded variant
+        # 0*inf/NaN cotangent poisoning (models/optimize.py) — the
+        # differentiable path pulls gradients through ops/stencil.py
+        # instead (make_diff_pallas_collide)
         inv2 = attr / (gap * gap)
     if not legacy and _magmin_ok(params):
         # region-by-region collapse of the three-way select (see
-        # _magmin_ok): gap < i1 -> ramp <= mina exactly (mina plus a
-        # non-positive product) and inv2 >= attr/i1^2 >> mina, so both
-        # reductions land on mina (at gap == 0 inv2 is +inf, which min
-        # discards — attr > 0 statically, so never NaN); [i1, i2) ->
-        # mina <= ramp <= inv2; [i2, inf) -> inv2 <= ramp.  The float
-        # orderings at the i2 breakpoint are enumeration-verified for
-        # the gated attraction value.  gap < 0 pairs may differ in mag
-        # (inv2 < mina once |gap| > 1) but are overlap pairs: attract
-        # == 0 and both forms finite, so every output term is 0 either
-        # way.  Two compare+selects -> one min + one max per block.
+        # _magmin_ok): gap < i1 -> ramp <= mina exactly and inv2 >=
+        # attr/i1^2 >> mina, so both reductions land on mina (gap == 0
+        # gives inv2 = +inf, which min discards); [i1, i2) -> mina <= ramp
+        # <= inv2; [i2, inf) -> inv2 <= ramp.  gap < 0 pairs may differ in
+        # mag but are overlap pairs: attract == 0 and both forms finite.
         mag = jnp.minimum(jnp.maximum(mina, ramp), inv2)
     else:
         mag = jnp.where(gap < i1, mina, jnp.where(gap < i2, ramp, inv2))
@@ -281,312 +195,164 @@ def _pair_block(
     return fx, fy, ma, mc
 
 
-def _kernel_fields(params: SimParams) -> tuple:
-    """Field planes the kernel actually needs stacked/pre-shifted.
-
-    Without a payload every bot's attraction factor is 1, so the afac
-    plane is numerically identical to val (engine_table._derived_rows,
-    _bot_rows) — the kernel aliases it.  val itself is recomputed from
-    rad > 0 (occupied rows always carry rad >= min_radius > 0; empty rows
-    are zero): two (C, L)-shaped compares per block against two fewer
-    planes stacked, pre-shifted, and DMA'd (~29% of the roll traffic)."""
-    if params.has_payload:
-        return tuple(k for k in FIELDS if k != "val")
-    return tuple(k for k in FIELDS if k not in ("afac", "val"))
-
-
-def _derive_fields(fields: tuple, d: dict) -> dict:
-    """Recompute the val (= rad > 0) and afac (= val, no payload) planes
-    when they are not stacked — THE aliasing rule behind _kernel_fields;
-    the megakernel's in-kernel field dicts reuse it."""
-    if "val" not in fields:
-        d["val"] = (d["rad"] > 0).astype(jnp.float32)
-    if "afac" not in fields:
+def _with_derived(params: SimParams, d: dict) -> dict:
+    """Add the ``val`` (= rad > 0) and, without a payload, ``afac`` (=
+    val) planes that :func:`kernel_fields` does not read."""
+    d["val"] = (d["rad"] > 0).astype(jnp.float32)
+    if not params.has_payload:
         d["afac"] = d["val"]
     return d
 
 
-def _field_dicts(fields: tuple):
-    """(tgt_fields, cand_fields) builders over a stacked block array, with
-    the val/afac planes recomputed via :func:`_derive_fields` when they
-    are not stacked."""
-    def derive(d):
-        return _derive_fields(fields, d)
-
-    def tgt(stk):
-        return derive(
-            {k: stk[0, j, :, :][:, None, :] for j, k in enumerate(fields)}
-        )
-
-    def cand(stk, b):
-        return derive(
-            {k: stk[b, j, :, :][None, :, :] for j, k in enumerate(fields)}
-        )
-
-    return tgt, cand
+def _tile_for(n_t: int) -> int:
+    tile = TILE
+    while n_t % tile:
+        tile //= 2
+    return tile
 
 
-def _make_kernel(params: SimParams, fields: tuple = FIELDS):
-    cap = params.cell_capacity
-    tgt_fields_of, cand_fields_of = _field_dicts(fields)
-
-    def kernel(occ_ref, stk, acc_ref, racc_ref):
-        # occ_ref: scalar-prefetch (n_tiles,) — occupied-target count per
-        # lane tile.  The bbox-anchored grid still leaves ~2/3 of lanes
-        # empty at auto-G (the margin for drift/expansion); a tile with no
-        # occupied TARGETS has no pairs and no reactions, so the whole
-        # VPU pair evaluation is skipped (zero targets => zero everything).
-        # stk: (N_BLOCKS, N_FIELDS, C, L) pre-shifted candidate blocks;
-        # block 0 doubles as the targets.
-        i = pl.program_id(0)
-
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-        racc_ref[...] = jnp.zeros_like(racc_ref)
-
-        @pl.when(occ_ref[i] > 0)
-        def _():
-            t = tgt_fields_of(stk)
-            l = stk.shape[-1]
-            acc = [jnp.zeros((cap, l), jnp.float32) for _ in range(4)]
-
-            for b in range(N_BLOCKS):
-                c = cand_fields_of(stk, b)
-                dfx, dfy, dfa, dfr = _pair_block(params, t, c, b == 0, cap)
-                acc[0] = acc[0] + jnp.sum(dfx, axis=1)
-                acc[1] = acc[1] + jnp.sum(dfy, axis=1)
-                acc[2] = acc[2] + jnp.sum(dfa, axis=1)
-                acc[3] = acc[3] + jnp.sum(dfr, axis=1)
-                if b == 0:
-                    # in-cell Newton reaction: the target-axis sum is
-                    # already aligned to candidate slots of the SAME lane
-                    acc[0] = acc[0] - jnp.sum(dfx, axis=0)
-                    acc[1] = acc[1] - jnp.sum(dfy, axis=0)
-                    acc[2] = acc[2] + jnp.sum(dfa, axis=0)
-                    acc[3] = acc[3] + jnp.sum(dfr, axis=0)
-                else:
-                    # Newton reaction on the candidates: sum over the TARGET
-                    # axis lands values aligned to candidate slots; the cell
-                    # offset is realigned outside the kernel.
-                    racc_ref[b - 1, 0, :, :] = -jnp.sum(dfx, axis=0)
-                    racc_ref[b - 1, 1, :, :] = -jnp.sum(dfy, axis=0)
-                    racc_ref[b - 1, 2, :, :] = jnp.sum(dfa, axis=0)
-                    racc_ref[b - 1, 3, :, :] = jnp.sum(dfr, axis=0)
-
-            acc_ref[0, :, :] = acc[0]
-            acc_ref[1, :, :] = acc[1]
-            acc_ref[2, :, :] = acc[2]
-            acc_ref[3, :, :] = acc[3]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnums=(0, 2))
-def _stencil_forces_pallas(params: SimParams, tables, edge_guarded=False):
-    """tables: dict of (C, G*G) f32 arrays -> (fx, fy, fa, fr) (C, G*G).
-
-    ``edge_guarded=True`` (the table loop) asserts the wrapped edge
-    columns hold no bots — the anchoring invariant of
-    engine_table.enter_table/_rebuild (EDGE_MARGIN=2 plus the incremental
-    rebuild's margin-1 fallback guard) — which lets the preshift/realign
-    drop their x-wrap fix rolls (see _preshift_flat).  The per-bot collide
-    path anchors at the bare bbox (edge columns may be occupied) and must
-    keep the exact wrap."""
-    g, cap = params.resolved_grid_dim(), params.cell_capacity
-    gg = g * g
-    kfields = _kernel_fields(params)
-    nf = len(kfields)
-    wrap_fix = not edge_guarded
-
-    # pre-shift candidate blocks with exact 2-D wrap: value read at cell
-    # (y, x) is table[(y+dy) % G, (x+dx) % G]
-    # (measured: packing all fields into one roll per offset is a wash —
-    # XLA already batches these)
-    if _PRESHIFT_MODE == "flat":
-        base = jnp.stack([tables[k] for k in kfields])  # (nf, C, gg)
-        stk = jnp.stack(
-            [_preshift_flat(base, g, dx, dy, wrap_fix) for dx, dy in OFFSETS]
-        )  # (N_BLOCKS, nf, C, G*G)
-    else:
-        blocks = []
-        for dx, dy in OFFSETS:
-            fields = []
-            for k in kfields:
-                x = tables[k].reshape(cap, g, g)  # (C, G_y, G_x)
-                if dx or dy:
-                    x = jnp.roll(x, (-dy, -dx), axis=(1, 2))
-                fields.append(x.reshape(cap, gg))
-            blocks.append(jnp.stack(fields))
-        stk = jnp.stack(blocks)  # (N_BLOCKS, nf, C, G*G)
-
-    kernel = _make_kernel(params, kfields)
-    # largest lane-chunk <= LANE_CHUNK that divides G*G and keeps 128-lane
-    # tiling (G*G is always a multiple of 128 since G % 16 == 0)
-    chunk = min(LANE_CHUNK, gg)
-    while gg % chunk:
-        chunk -= 128
-    grid = (gg // chunk,)
-
-    # occupied-TARGET count per lane tile: a tile with none has no pairs —
-    # the kernel skips its entire pair evaluation (typically ~2/3 of tiles
-    # are empty: the bbox grid carries drift/expansion margin)
-    occ = jnp.sum(
-        tables["val"].reshape(cap, gg // chunk, chunk), axis=(0, 2)
-    ).astype(jnp.int32)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (N_BLOCKS, nf, cap, chunk),
-                lambda i, occ: (0, 0, 0, i),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (4, cap, chunk), lambda i, occ: (0, 0, i),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (N_BLOCKS - 1, 4, cap, chunk),
-                lambda i, occ: (0, 0, 0, i),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-    )
-    acc, racc = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((4, cap, gg), jnp.float32),
-            jax.ShapeDtypeStruct((N_BLOCKS - 1, 4, cap, gg), jnp.float32),
-        ],
-        interpret=jax.default_backend() == "cpu",
-    )(occ, stk)
-
-    # realign reactions: a reaction computed for candidates of block (dx, dy)
-    # belongs at cell (y+dy, x+dx)
-    total = acc
-    for bi, (dx, dy) in enumerate(OFFSETS[1:]):
-        if _PRESHIFT_MODE == "flat":
-            total = total + _realign_flat(racc[bi], g, dx, dy, wrap_fix)
-        else:
-            r = racc[bi].reshape(4, cap, g, g)
-            r = jnp.roll(r, (dy, dx), axis=(2, 3))
-            total = total + r.reshape(4, cap, gg)
-    return total[0], total[1], total[2], total[3]
-
-
-def _make_kernel_ext(params: SimParams):
-    """Non-Newton kernel body: 9 candidate blocks, targets only, no racc."""
-    cap = params.cell_capacity
-    nb = len(OFFSETS9)
-
-    def kernel(occ_ref, stk, acc_ref):
-        i = pl.program_id(0)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-        @pl.when(occ_ref[i] > 0)
-        def _():
-            t = {
-                k: stk[0, j, :, :][:, None, :] for j, k in enumerate(FIELDS)
-            }
-            l = stk.shape[-1]
-            acc = [jnp.zeros((cap, l), jnp.float32) for _ in range(4)]
-            for b in range(nb):
-                c = {
-                    k: stk[b, j, :, :][None, :, :] for j, k in enumerate(FIELDS)
-                }
-                dfx, dfy, dfa, dfr = _pair_block(
-                    params, t, c, b == 0, cap, newton_center=False
-                )
-                acc[0] = acc[0] + jnp.sum(dfx, axis=1)
-                acc[1] = acc[1] + jnp.sum(dfy, axis=1)
-                acc[2] = acc[2] + jnp.sum(dfa, axis=1)
-                acc[3] = acc[3] + jnp.sum(dfr, axis=1)
-            acc_ref[0, :, :] = acc[0]
-            acc_ref[1, :, :] = acc[1]
-            acc_ref[2, :, :] = acc[2]
-            acc_ref[3, :, :] = acc[3]
-
-    return kernel
-
-
-def stencil_forces_pallas_ext(
-    params: SimParams,
-    tables_ext: dict,        # str -> (C, ext_lanes) f32, halo-extended
-    center_start: int,       # first CENTER lane (multiple of 128)
-    center_lanes: int,       # CENTER width in lanes (multiple of 128)
+def _make_kernel(
+    params: SimParams, names: tuple, g: int, rows: int, stride: int,
+    t0: int, tile: int, cp: int,
 ):
-    """Forces for the CENTER region of a halo-extended table — the sharded
-    -table force pass (parallel/spatial_table.py).
+    cap = params.cell_capacity
+    f32 = jnp.float32
 
-    The extended table is ``[halo_lo | center | halo_hi]`` along lanes with
-    halos holding the neighbor shards' boundary grid rows (exchanged over
-    ICI).  The NON-Newton 9-block form is used so no reactions ever need to
-    travel back across the shard boundary.  The preshift's flat-roll wrap
-    is only exact away from the extended array's outer edge, so callers
-    must pad halos with >= 2 grid rows (outer rows may hold garbage
-    candidates for the outermost halo row — never for center targets).
-    Returns (fx, fy, fa, fr), each (C, center_lanes).
-    """
-    g, cap = params.resolved_grid_dim(), params.cell_capacity
-    ext = tables_ext["val"].shape[-1]
-    assert center_start % LANE_CHUNK == 0 and center_lanes % LANE_CHUNK == 0
+    def kernel(*refs):
+        src = dict(zip(names, refs[: len(names)]))
+        out_ref = refs[len(names)]
+        lane = t0 + pl.program_id(0) * tile + jnp.arange(tile, dtype=jnp.int32)
+        slot = jnp.arange(cp, dtype=jnp.int32)[:, None]          # (cp, 1)
+        row_mask = (
+            None if cp == cap else jnp.broadcast_to(slot < cap, (cp, tile))
+        )
 
-    base = jnp.stack([tables_ext[k] for k in FIELDS])  # (N_FIELDS, C, ext)
-    stk = jnp.stack(
-        [_preshift_flat(base, g, dx, dy) for dx, dy in OFFSETS9]
-    )  # (9, N_FIELDS, C, ext)
+        def load_block(name, lanes):
+            """(cp, tile) slot block of the cells ``lanes``."""
+            idx = slot * stride + lanes[None, :]
+            if row_mask is None:
+                return src[name][idx]
+            return plgpu.load(src[name].at[idx], mask=row_mask, other=0.0)
 
-    chunk = LANE_CHUNK
-    n_tiles = center_lanes // chunk
-    tile0 = center_start // chunk
+        t = _with_derived(params, {k: load_block(k, lane) for k in names})
+        # targets on axis 0, candidates on axis 1, cells on axis 2
+        t3 = {k: v[:, None, :] for k, v in t.items()}
+        zero = tuple(jnp.zeros((cp, tile), f32) for _ in range(4))
 
-    occ = jnp.sum(
-        tables_ext["val"][:, center_start : center_start + center_lanes]
-        .reshape(cap, n_tiles, chunk),
-        axis=(0, 2),
-    ).astype(jnp.int32)
+        def forces():
+            acc = zero
+            for dx, dy in OFFSETS9:
+                nl = neighbor_lanes(lane, g, rows, dx, dy)
+                c = _with_derived(
+                    params, {k: load_block(k, nl)[None, :, :] for k in names}
+                )
+                self_pair = None
+                if dx == 0 and dy == 0:
+                    self_pair = slot[:, :, None] != slot[None, :, :]
+                terms = _pair_terms(params, t3, c, self_pair)
+                acc = tuple(a + jnp.sum(b, axis=1) for a, b in zip(acc, terms))
+            return acc
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec(
-                (len(OFFSETS9), N_FIELDS, cap, chunk),
-                lambda i, occ: (0, 0, 0, i + tile0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (4, cap, chunk), lambda i, occ: (0, 0, i),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
+        # a tile with no target (most of the bbox grid's margin) skips the
+        # whole pair evaluation
+        acc = jax.lax.cond(jnp.max(t["rad"]) > 0, forces, lambda: zero)
+        for i in range(4):
+            out_ref[i, :, :] = acc[i]
+
+    return kernel
+
+
+def _table_forces_kernel(
+    params: SimParams, fields: tuple, g: int, rows: int, stride: int,
+    t0: int, n_t: int,
+):
+    names = kernel_fields(params)
+    cap = params.cell_capacity
+    cp = pl.next_power_of_2(cap)
+    tile = _tile_for(n_t)
+    out = pl.pallas_call(
+        _make_kernel(params, names, g, rows, stride, t0, tile, cp),
+        grid=(n_t // tile,),
+        in_specs=[pl.no_block_spec] * len(names),
+        out_specs=pl.BlockSpec((4, cp, tile), lambda i: (0, 0, i)),
+        out_shape=jax.ShapeDtypeStruct((4, cp, n_t), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
+        ),
+        interpret=interpret_mode(),
+        name="table_forces",
+    )(*fields)
+    return tuple(out[i, :cap] for i in range(4))
+
+
+def table_forces(
+    params: SimParams, fields: dict, g: int, rows: int, stride: int,
+    t0: int, n_t: int,
+):
+    """Pair forces on the targets of a slot-major table — the Triton
+    kernel (interpret mode on the CPU).
+
+    ``fields`` maps each :func:`kernel_fields` name to a flat array whose
+    row ``slot * stride + lane`` holds slot ``slot`` of cell ``lane``
+    (rows past ``cell_capacity * stride`` are never read).  The lanes form
+    ``rows`` grid rows of ``g`` cells; targets are the ``n_t`` lanes from
+    ``t0``.  Returns (fx, fy, |fa|, |fr|), each (cell_capacity, n_t)."""
+    names = kernel_fields(params)
+    return _table_forces_kernel(
+        params, tuple(fields[k] for k in names), g, rows, stride, t0, n_t
     )
-    (acc,) = pl.pallas_call(
-        _make_kernel_ext(params),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((4, cap, center_lanes), jnp.float32),
-        ],
-        interpret=jax.default_backend() == "cpu",
-    )(occ, stk)
-    return acc[0], acc[1], acc[2], acc[3]
+
+
+def table_forces_jnp(
+    params: SimParams, fields: dict, g: int, rows: int, stride: int,
+    t0: int, n_t: int,
+):
+    """:func:`table_forces` as plain jnp: the same 9-block pair math on
+    broadcast (C, C, n_t) blocks, left to XLA."""
+    cap = params.cell_capacity
+    names = kernel_fields(params)
+    planes = {k: fields[k][: cap * stride].reshape(cap, stride) for k in names}
+    lane = t0 + jnp.arange(n_t, dtype=jnp.int32)
+    t = _with_derived(params, {k: v[:, t0 : t0 + n_t][:, None, :]
+                               for k, v in planes.items()})
+    ti = jax.lax.broadcasted_iota(jnp.int32, (cap, cap, 1), 0)
+    ci = jax.lax.broadcasted_iota(jnp.int32, (cap, cap, 1), 1)
+    acc = [jnp.zeros((cap, n_t), jnp.float32) for _ in range(4)]
+    for dx, dy in OFFSETS9:
+        nl = neighbor_lanes(lane, g, rows, dx, dy)
+        c = _with_derived(params, {k: v[:, nl][None] for k, v in planes.items()})
+        center = dx == 0 and dy == 0
+        terms = _pair_terms(params, t, c, (ti != ci) if center else None)
+        acc = [a + jnp.sum(b, axis=1) for a, b in zip(acc, terms)]
+    return tuple(acc)
+
+
+def assign_slots_slotmajor(params: SimParams, pos, mask, origin=None, cap=None):
+    """(n_pad,) flat slot per bot in the (C, G*G) slot-major layout:
+    ``slot = rank * G*G + cell_id`` (rank = index within the cell).
+    Out-of-range value G*G*C marks dropped bots (padding / overflow).
+    ``cap`` defaults to the force-visible cell capacity; the table loop
+    passes its storage capacity (incl. overflow spill slots)."""
+    g = params.resolved_grid_dim()
+    cap = cap if cap is not None else params.cell_capacity
+    n = pos.shape[0]
+    cid = cell_ids(params, pos, mask, origin=origin)
+    order, scid, rank, in_range, overflow = rank_cells(cid, g, cap)
+    keep = in_range & (rank < cap)
+    slot_sorted = jnp.where(keep, rank * (g * g) + scid, g * g * cap)
+    slot = jnp.zeros((n,), jnp.int32).at[order].set(slot_sorted)
+    return slot, overflow
 
 
 def make_diff_pallas_collide(params: SimParams, dt: float):
-    """Differentiable wrapper: Mosaic-fast forward, exact XLA backward.
+    """Differentiable wrapper: kernel forward, exact XLA backward.
 
     The Pallas kernel has no automatic VJP.  Its math is identical (to
     float32 reassociation, tests/test_pallas.py) to the pure-XLA roll
     stencil (ops/stencil.py), which IS differentiable — so the custom VJP
     runs the kernel forward and pulls cotangents back through the stencil
-    formulation.  This unlocks gradient studies (models/optimize.py) at
-    10k+ bots where the round-1 DENSE fallback ran out of steam.
+    formulation (gradient studies, models/optimize.py).
 
     mask/payload ride as float planes so every primal arg has a float
     cotangent (they get zeros); dt/params are static closure values.
@@ -629,37 +395,29 @@ def pallas_stencil_collide(
     dt: float,
     slot: jax.Array | None = None,
 ):
-    """Drop-in collide pass: scatter to table, Pallas stencil, gather back.
+    """Drop-in collide pass: scatter to table, force kernel, gather back.
 
-    ``slot`` may be supplied by the engine (slot-reuse optimization: the
-    argsort-based assignment is ~1/3 of the step at 10k bots and bots move
-    ~5e-4 cells per step, so reusing assignments for a few steps is safe —
-    the reference reuses its sort for *18000* steps, compensated by a wider
-    scan; see config.slot_rebuild_steps).
+    ``slot`` may be supplied by the engine (slot-reuse optimization: bots
+    move ~5e-4 cells per step, so reusing assignments for a few steps is
+    safe — the reference reuses its sort for *18000* steps, compensated by
+    a wider scan; see config.slot_rebuild_steps).
     """
     g, cap = params.resolved_grid_dim(), params.cell_capacity
-    total = g * g * cap
+    gg = g * g
+    total = gg * cap
     if slot is None:
         slot, _overflow = assign_slots_slotmajor(params, pos, mask)
 
-    # one 8-wide row scatter instead of seven scalar scatters
+    # one wide row scatter instead of per-field scatters
     afac = attraction_scale(params, payload)
     rows = jnp.stack(
-        [
-            pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1], rad,
-            mask.astype(jnp.float32), afac, jnp.zeros_like(rad),
-        ],
-        axis=-1,
-    )  # (n_pad, 8)
-    table8 = (
-        jnp.zeros((total, 8), jnp.float32).at[slot].set(rows, mode="drop")
-    )
-    planes = table8.reshape(cap, g * g, 8)
-    tables = {
-        k: planes[:, :, j]
-        for j, k in enumerate(("px", "py", "vx", "vy", "rad", "val", "afac"))
+        [pos[:, 0], pos[:, 1], vel[:, 0], vel[:, 1], rad, afac], axis=-1
+    )  # (n_pad, 6)
+    table = jnp.zeros((total, 6), jnp.float32).at[slot].set(rows, mode="drop")
+    fields = {
+        k: table[:, j] for j, k in enumerate(("px", "py", "vx", "vy", "rad", "afac"))
     }
-    fx, fy, fa, fr = _stencil_forces_pallas(params, tables)
+    fx, fy, fa, fr = table_forces(params, fields, g, g, gg, 0, gg)
 
     safe_slot = jnp.minimum(slot, total - 1)
     got = mask & (slot < total)

@@ -1,18 +1,16 @@
 """Stencil force backend: neighbor search as a dense 3x3 roll, zero gathers.
 
-The cell-table backend (ops/grid.py) is algorithmically right but its
-``(N, 9*C)`` candidate gathers lower to scalar random access on TPU —
-measured ~14 ms per field at 10k bots, 30x the actual force math.  This
-backend removes the gathers entirely, which is the TPU-native formulation of
-the reference's uniform-grid scan (particlebot_kernel_impl.cuh:691-699):
+The cell-table backend (ops/grid.py) gathers ``(N, 9*C)`` candidates per
+field.  This backend removes the gathers entirely — a dense-array
+formulation of the reference's uniform-grid scan
+(particlebot_kernel_impl.cuh:691-699):
 
 1. scatter bot fields into a dense wrapped cell table ``(G, G, C)``
    (scatters are cheap: one argsort + rank computation),
 2. the 3x3 neighborhood is then ``jnp.roll`` of the table along the grid
    axes — nine *contiguous* shifted views, no random access,
 3. pair forces reduce over the candidate capacity axis as a fused
-   elementwise chain ``(G, G, C, C) -> (G, G, C)`` — pure VPU work with the
-   two minor axes folding into full 256-lane tiles for C=16,
+   elementwise chain ``(G, G, C, C) -> (G, G, C)``,
 4. per-bot results come back through four tiny ``(N,)`` flat gathers.
 
 Compute is O(G^2 * C^2 * 9): at G=64, C=16 that is 9.4M pair evaluations —

@@ -2,7 +2,7 @@
 
 The stretch design from SURVEY.md §2: when a single swarm outgrows one chip,
 shard the *bot* axis.  Forces need every bot's position, so each device
-all-gathers the (small: N*5 floats) kinematic state over ICI and computes
+all-gathers the (small: N*5 floats) kinematic state and computes
 forces for its own bot shard — the tensor-parallel analogue.  Reductions the
 step needs globally (min distance to light for the phase law, the swarm
 centroid) are ``psum``-style collectives.

@@ -9,28 +9,23 @@ contiguous lane block (``R = G/D`` grid rows) of every ``(C, G*G)`` plane
 and all per-step compute is local except:
 
 * **forces** — each shard exchanges its boundary grid row with its ring
-  neighbors over ICI (``ppermute``), then runs a NON-Newton 9-block Pallas
-  kernel (ops/pallas_stencil.stencil_forces_pallas_ext) on the halo
-  -extended table: without reactions, nothing ever needs to travel back
-  across the boundary;
-* **slot rebuilds** — the incremental compaction window
-  (ops/table_rebuild.compact_padded) sees the neighbor halos, so a row
-  that drifts across the shard boundary is dropped by its owner and placed
-  by the neighbor in the same bit-identical rank-and-place pass; the
-  preconditions are AND-reduced across shards and any failure triggers the
-  exact global rebuild (all-gather + argsort, replicated) — the same
-  fallback contract as the single-chip loop;
+  neighbors (``ppermute``, which XLA hands to NCCL), then runs the force
+  kernel (ops/pallas_stencil.table_forces) on the halo-extended table:
+  the kernel writes only its own targets' forces, so nothing ever needs
+  to travel back across the boundary;
+* **slot rebuilds** — every ``slot_rebuild_steps`` the shards all-gather
+  the table and run the single-chip rebuild (argsort, replicated), then
+  keep their own lane blocks;
 * **reductions** — ``pmin`` for the phase law's min light distance,
   ``psum`` for the centroid, an all-gathered ``top_k`` for dead-cell
   injection (reference semantics: particlebot.cpp:178-194, 212-232).
 
 Capacity-overflow "parked" bots live in a REPLICATED parking strip: every
 shard integrates them identically (they exert no pair forces), and they
-are reinstated by the global fallback / chunk entries, exactly like the
+are reinstated by the rebuilds / chunk entries, exactly like the
 single-chip loop.
 
-Geometry constraints: ``G % 32 == 0``, ``D | G`` and ``(G*G/D) % 128 == 0``
-keep every shard's lane block and the 4-grid-row halo pads tile-aligned;
+Geometry constraint: ``D | G``, so every shard owns whole grid rows;
 ``resolve_tp_params`` rounds the auto grid up to a compatible size.
 
 RNG-stream deviation: phase noise and dead-injection scores are drawn from
@@ -56,10 +51,8 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import Control, SimParams
 from ..engine_table import (
-    MOVE_FIELDS,
     TABLE_FIELDS,
     TableState,
-    _derived_rows,
     _gates,
     _geometry,
     _rebuild_fields,
@@ -68,25 +61,17 @@ from ..engine_table import (
 )
 from ..ops.forces import friction_velocity_update_xy, obstacle_forces
 from ..ops.integrate import radius_integrate_planes
-from ..ops.pallas_stencil import FIELDS as KERNEL_FIELDS
-from ..ops.pallas_stencil import stencil_forces_pallas_ext
+from ..ops.pallas_stencil import kernel_fields, table_forces
 from ..ops.phase import light_distance, update_phase
-from ..ops.table_rebuild import compact_padded, rebuild_move_planes
 from ..state import SimState
-
-# halo grid rows per side: only the innermost row carries real neighbor
-# data; the rest are zero pad that keeps the halo lane count a multiple of
-# 128 (4*G % 128 == 0 whenever G % 32 == 0) and absorbs the preshift's
-# flat-roll wrap at the extended array's outer edge
-HALO_ROWS = 4
 
 
 def resolve_tp_params(params: SimParams, n_shards: int) -> SimParams:
-    """Round the grid up until the shard geometry is tile-aligned."""
+    """Round the grid up until every shard owns whole grid rows."""
     params = params.validate()
     g = params.resolved_grid_dim()
-    while g % 32 or g % n_shards or (g * g // n_shards) % 128:
-        g += 16
+    while g % n_shards:
+        g += 1
     return params.replace(grid_dim=g)
 
 
@@ -99,24 +84,22 @@ def make_sharded_table_run(
     replicated bot-order SimState (the sharded table lives only inside).
 
     ``with_stats=True`` makes ``run_chunk`` return ``(state, stats)`` with
-    in-run path-identity counters accumulated inside the scan (replicated
-    scalars): ``fallbacks`` — how many rebuilds took the exact global
-    fallback instead of the incremental compaction — and
+    an in-run counter accumulated inside the scan (a replicated scalar):
     ``spill_rows_max`` — the per-step maximum number of occupied
-    overflow-spill sublane rows across all shards (0 when the table has no
-    spill).  Used by ``__graft_entry__.dryrun_multichip`` to PROVE which
-    internal paths a certification actually exercised."""
+    overflow-spill rows across all shards (0 when the table has no
+    spill).  Used by ``__graft_entry__.dryrun_multichip`` to PROVE the
+    spill path was exercised."""
     D = int(np.prod([s for n, s in zip(mesh.axis_names, mesh.devices.shape) if n == axis]))
     params = resolve_tp_params(params, D)
     g, cap = params.resolved_grid_dim(), params.cell_capacity
     cs = params.storage_capacity()
     gg = g * g
     L0 = gg // D                 # lanes (cells) per shard
-    H = HALO_ROWS * g            # halo lanes per side
+    H = g                        # halo lanes per side: one grid row
+    ext_len = L0 + 2 * H
     center_len = cs * L0         # local table rows (flat)
     total, total_ext, n_pad = _geometry(params)
-    nf = len(MOVE_FIELDS)
-    vi = MOVE_FIELDS.index("val")
+    kfields = kernel_fields(params)
     k_rb = max(1, params.resolved_slot_rebuild_steps())
     dt = params.timestep
     f32 = jnp.float32
@@ -129,8 +112,7 @@ def make_sharded_table_run(
         wrap rides the ring)."""
         from_prev = jax.lax.ppermute(x[..., -g:], axis, fwd)
         from_next = jax.lax.ppermute(x[..., :g], axis, bwd)
-        z = jnp.zeros(x.shape[:-1] + ((HALO_ROWS - 1) * g,), x.dtype)
-        return jnp.concatenate([z, from_prev, x, from_next, z], axis=-1)
+        return jnp.concatenate([from_prev, x, from_next], axis=-1)
 
     def split_local(fields, d):
         """Global (total_ext,) fields -> this shard's local flat dict."""
@@ -153,47 +135,17 @@ def make_sharded_table_run(
             out[k] = jnp.concatenate([glob, f[k][center_len:]])
         return out
 
-    def sharded_rebuild(f, origin, d):
-        """Incremental compaction with neighbor halos; exact global
-        fallback when any shard's preconditions fail."""
-        planes = jnp.stack(
-            [f[k][:center_len] for k in MOVE_FIELDS]
-        ).reshape(nf, cs, L0)
-        # shared precondition math (edge-guard margin, wrap convention,
-        # moved-far bound) — lanes offset to this shard's global block
-        dxf, dyf, moved_far, edge = rebuild_move_planes(
-            params, planes, MOVE_FIELDS, origin, lane_offset=d * L0
-        )
-        padded = halo_exchange(
-            jnp.concatenate([planes, dxf[None], dyf[None]], axis=0)
-        )
-        new_planes, incoming = compact_padded(params, nf, vi, padded, H, L0)
-        overflow = jnp.any(incoming > cs)
-        ok_local = ~(moved_far | overflow | edge)
-        ok_all = jax.lax.pmin(ok_local.astype(jnp.int32), axis) > 0
-
-        def take_inc(args):
-            f_, o_ = args
-            out = dict(f_)
-            for j, k in enumerate(MOVE_FIELDS):
-                out[k] = jnp.concatenate(
-                    [new_planes[j].reshape(center_len), f_[k][center_len:]]
-                )
-            return _derived_rows(params, out), o_
-
-        def take_exact(args):
-            f_, o_ = args
-            gf, new_origin = _rebuild_fields(params, join_global(f_))
-            return split_local(gf, d), new_origin
-
-        f, origin = jax.lax.cond(ok_all, take_inc, take_exact, (f, origin))
-        return f, origin, ok_all
+    def sharded_rebuild(f, d):
+        """All-gather the shard tables, run the single-chip rebuild
+        replicated, keep this shard's lane block."""
+        gf, origin = _rebuild_fields(params, join_global(f))
+        return split_local(gf, d), origin
 
     def step_local(f, step, key, ring, origin, d, rebuild, stats):
         """One physics step on the shard-local fields; op order ==
         engine_table.make_table_step (== the reference).  ``stats`` is
-        either None or the (fallbacks, spill_rows_max) int32 counter pair
-        (with_stats mode), threaded through unchanged otherwise."""
+        either None or the spill_rows_max int32 counter (with_stats
+        mode)."""
         time = step.astype(f32) * f32(dt)
         step_key = jax.random.fold_in(key, step)
         val = f["val"] > 0.5
@@ -284,29 +236,28 @@ def make_sharded_table_run(
 
         # 6. slot rebuild (static schedule, between integrate and collide)
         if rebuild is True:
-            f, origin, rb_ok = sharded_rebuild(f, origin, d)
-            if stats is not None:
-                stats = (stats[0] + (1 - rb_ok.astype(jnp.int32)), stats[1])
+            f, origin = sharded_rebuild(f, d)
         elif rebuild is not False:
-            f, origin, rb_ok = jax.lax.cond(
+            f, origin = jax.lax.cond(
                 rebuild,
-                lambda args: sharded_rebuild(*args),
-                lambda args: (args[0], args[1], jnp.asarray(True)),
-                (f, origin, d),
+                lambda fo: sharded_rebuild(fo[0], d),
+                lambda fo: fo,
+                (f, origin),
             )
-            if stats is not None:
-                stats = (stats[0] + (1 - rb_ok.astype(jnp.int32)), stats[1])
 
-        # 7. collide: halo exchange + non-Newton extended kernel
-        stk_in = jnp.stack(
-            [f[k][:center_len].reshape(cs, L0)[:cap] for k in KERNEL_FIELDS]
+        # 7. collide: halo exchange + the force pass on the extended table
+        #    (targets are this shard's lanes [H, H + L0))
+        ext = halo_exchange(
+            jnp.stack([f[k][:center_len].reshape(cs, L0)[:cap] for k in kfields])
         )
-        ext = halo_exchange(stk_in)
-        tables_ext = {k: ext[j] for j, k in enumerate(KERNEL_FIELDS)}
-        fx, fy, fa, fr = stencil_forces_pallas_ext(params, tables_ext, H, L0)
+        fx, fy, fa, fr = table_forces(
+            params,
+            {k: ext[j].reshape(cap * ext_len) for j, k in enumerate(kfields)},
+            g, ext_len // g, ext_len, H, L0,
+        )
 
         def expand(a):
-            """(cap, L0) kernel output -> (local_len,): spill sublanes and
+            """(cap, L0) kernel output -> (local_len,): spill rows and
             the parking strip feel no pair forces."""
             fullc = jnp.concatenate(
                 [a, jnp.zeros((cs - cap, L0), f32)], axis=0
@@ -333,7 +284,7 @@ def make_sharded_table_run(
         f["vx"] = jnp.where(val_r, nvx, 0.0)
         f["vy"] = jnp.where(val_r, nvy, 0.0)
         if stats is not None and cs > cap:
-            # occupied overflow-spill sublane rows across all shards, this
+            # occupied overflow-spill rows across all shards, this
             # step — the max over steps certifies spill rows really held
             # bots during the run
             spill = jax.lax.psum(
@@ -342,7 +293,7 @@ def make_sharded_table_run(
                 ).astype(jnp.int32),
                 axis,
             )
-            stats = (stats[0], jnp.maximum(stats[1], spill))
+            stats = jnp.maximum(stats, spill)
         return f, step + 1, ring, origin, stats
 
     def chunk_body(state: SimState, n_steps: int) -> SimState:
@@ -357,9 +308,7 @@ def make_sharded_table_run(
             )
             return (f, step, ring, origin, stats)
 
-        stats0 = (
-            (jnp.int32(0), jnp.int32(0)) if with_stats else None
-        )
+        stats0 = jnp.int32(0) if with_stats else None
         carry = (f, ts.step, ts.centroid_ring, ts.origin, stats0)
         if k_rb == 1:
             def body(c, _):
@@ -368,9 +317,9 @@ def make_sharded_table_run(
             carry, _ = jax.lax.scan(body, carry, None, length=n_steps)
         elif k_rb <= 8:
             n_blocks, rem = divmod(n_steps, k_rb)
-            # mirror engine_table's compile-size guard: unrolling k force
-            # -kernel instances into one scan body is ~4 min of XLA at
-            # >2^20 local table rows — scan the k-1 plain steps instead
+            # mirror engine_table's compile-size guard: above 2^20 local
+            # table rows, scan the k-1 plain steps instead of unrolling k
+            # force-pass instances into one scan body
             unroll_body = center_len <= (1 << 20)
 
             def plain(c, _):
@@ -405,9 +354,9 @@ def make_sharded_table_run(
             ),
         )
         if with_stats:
-            # replicated scalars: fallbacks derive from the pmin'd ok_all,
-            # spill counts are psum'd — identical on every shard
-            return out, {"fallbacks": stats[0], "spill_rows_max": stats[1]}
+            # replicated scalar: spill counts are psum'd — identical on
+            # every shard
+            return out, {"spill_rows_max": stats}
         return out
 
     @functools.partial(jax.jit, static_argnums=1)

@@ -2,7 +2,7 @@
 
 Replaces the reference's OpenGL point-sprite renderer + immediate-mode scene
 (/root/reference/render.cpp, shaders.cpp, main.cpp:387-461) with a headless
-top-down orthographic rasterizer: TPU hosts have no display, and the
+top-down orthographic rasterizer: accelerator hosts have no display, and the
 top-down view is what the paper's figures show anyway (the reference's 3-D
 camera is a presentation nicety).  Deviations are documented here:
 

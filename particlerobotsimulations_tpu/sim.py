@@ -1,6 +1,6 @@
 """High-level simulation driver — the app layer.
 
-TPU-native equivalent of the reference's GLUT app driver
+Equivalent of the reference's GLUT application loop
 (/root/reference/main.cpp:823-967 + the per-frame display() loop at
 main.cpp:354-481), minus the interactive window: scenario setup from a
 ``.cfg``, the step loop in dump-interval chunks (each chunk one jitted
@@ -76,11 +76,10 @@ class Simulation:
                 "cfg key, or set world_half 0 to auto-fit the placement"
             )
         if params.validate().resolved_backend() == ForceBackend.PALLAS:
-            # the table loop's edge-guard invariant (blob anchored
-            # EDGE_MARGIN cells in, wrapped edge columns never occupied)
-            # only holds when the swarm FITS the grid — an undersized
-            # user-set grid_dim would silently alias cells and corrupt the
-            # pair set, so fail loudly up front
+            # the wrapped table holds the swarm without aliasing only when
+            # the swarm FITS the grid — an undersized user-set grid_dim
+            # would fold distant cells onto one table cell and overflow
+            # its capacity, so fail loudly up front
             self._check_grid_fits(pos, raise_init=True)
 
     # ------------------------------------------------------------ builders
@@ -194,13 +193,10 @@ class Simulation:
         """Raise when the swarm spans more wrapped-grid cells than the table
         can hold without aliasing (PALLAS table loop only).
 
-        The production loop anchors the blob EDGE_MARGIN cells from the
-        wrapped edge columns and compiles the force kernel edge-guarded
-        (engine_table.py); a swarm wider than grid_dim - 2*EDGE_MARGIN cells
-        wraps around the table and silently corrupts the candidate set, so
-        it is an error, not a warning."""
+        A swarm wider than grid_dim cells wraps around the table: world
+        cells grid_dim apart share one table cell, whose capacity then
+        drops contacts, so it is an error, not a warning."""
         from .config import ForceBackend
-        from .ops.table_rebuild import EDGE_MARGIN
 
         if self.params.resolved_backend() != ForceBackend.PALLAS:
             return
@@ -214,7 +210,7 @@ class Simulation:
             + 1
         )
         g = self.params.resolved_grid_dim()
-        if spanned > g - 2 * EDGE_MARGIN:
+        if spanned > g:
             where = (
                 "initial state"
                 if raise_init
@@ -222,10 +218,8 @@ class Simulation:
             )
             raise ValueError(
                 f"swarm spans {spanned} grid cells at {where} but grid_dim="
-                f"{g} leaves only {g - 2 * EDGE_MARGIN} usable (EDGE_MARGIN="
-                f"{EDGE_MARGIN} wrapped edge columns must stay empty): the "
-                f"neighbor table would alias cells. Raise grid_dim (cfg key) "
-                f"or leave it 0 (auto)."
+                f"{g}: the neighbor table would alias cells. Raise grid_dim "
+                f"(cfg key) or leave it 0 (auto)."
             )
 
     def _check_cell_overflow(self, pos: np.ndarray, step_count: int) -> None:

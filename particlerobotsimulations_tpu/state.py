@@ -1,10 +1,9 @@
 """Simulation state pytree.
 
-TPU-native replacement for the reference's scattered host/device arrays
+Replacement for the reference's scattered host/device arrays
 (/root/reference/particlebot.cpp:77-166).  Structure-of-arrays, float32,
-padded to a lane-friendly multiple of 128 so every per-bot op maps cleanly
-onto the VPU.  The struct is a pytree: it can be scanned over, vmapped over a
-batch of scenes, donated, and sharded.
+padded to a multiple of 128 bots.  The struct is a pytree: it can be
+scanned over, vmapped over a batch of scenes, donated, and sharded.
 
 One-step-lag force feedback: ``abs_force_a`` / ``abs_force_r`` are the
 attraction / repulsion force magnitudes accumulated by the *previous* step's

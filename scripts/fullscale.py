@@ -1,7 +1,7 @@
 """Run every shipped reference scenario at FULL scale on the current backend
-and emit docs/fullscale_results.json.
+and write the results as JSON (default artifacts/fullscale_results.json).
 
-Usage:  PYTHONPATH=/root/repo:$PYTHONPATH python scripts/fullscale.py [out.json]
+Usage:  PYTHONPATH=. python scripts/fullscale.py [out.json]
 
 Each examples/*.cfg runs unmodified to its full max_time (the reference runs
 these as multi-hour interactive GLUT sessions; see docs/RESULTS.md for the
@@ -25,7 +25,7 @@ def main() -> int:
     from particlerobotsimulations_tpu import Simulation, load_cfg
 
     out_path = Path(sys.argv[1]) if len(sys.argv) > 1 else (
-        REPO / "docs" / "fullscale_results.json"
+        REPO / "artifacts" / "fullscale_results.json"
     )
     results = {}
     for cfg in sorted((REPO / "examples").glob("*.cfg")):
@@ -52,6 +52,7 @@ def main() -> int:
         print(f"{cfg.stem}: {params.n_cells} bots, {params.n_steps()} steps, "
               f"{wall:.0f}s wall, dist {d0:.2f} -> {d1:.2f} "
               f"[{results[cfg.stem]['backend']}]", flush=True)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(results, indent=2) + "\n")
     print(f"wrote {out_path}")
     return 0

@@ -106,7 +106,7 @@ def test_cli_platform_flag(tmp_path, capsys, monkeypatch):
     except (ImportError, AttributeError):
         probe_available = False
     try:
-        rc = cli.main(["simulate", cfg, "--platform", "tpu", "--quiet"])
+        rc = cli.main(["simulate", cfg, "--platform", "gpu", "--quiet"])
         err = capsys.readouterr().err
         if probe_available:
             # the config update is silently ineffective (backend client

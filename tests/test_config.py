@@ -9,6 +9,7 @@ import math
 import pytest
 
 from particlerobotsimulations_tpu import Config, ForceBackend, SimParams, load_cfg, parse_cfg_text
+from particlerobotsimulations_tpu.config import GPU_DENSE_MAX_BOTS
 
 EXAMPLES = "examples"
 
@@ -117,7 +118,10 @@ def test_parser_errors():
     with pytest.raises(ValueError):
         parse_cfg_text("nobstacles\n2\nx1obs\n1.0\nx2obs\n1 2\ny1obs\n1 2\ny2obs\n1 2\n")
     with pytest.raises(ValueError):
-        SimParams(grid_dim=100).validate()
+        parse_cfg_text("grid_dim\n-4\n").validate()
+    # any positive grid_dim is a valid table size (the kernel's cell tile
+    # adapts to it)
+    assert parse_cfg_text("grid_dim\n100\n").validate().grid_dim == 100
 
 
 def test_obstacle_cap_matches_reference_constant_arrays():
@@ -140,15 +144,51 @@ def test_phase_std_not_rederived_from_rise_period():
 
 def test_backend_resolution():
     assert SimParams(n_cells=300).resolved_backend() == ForceBackend.DENSE
-    # large swarms resolve to a scalable backend (PALLAS on TPU, STENCIL on
-    # the CPU test harness)
-    assert SimParams(n_cells=10000).resolved_backend() in (
-        ForceBackend.STENCIL,
-        ForceBackend.PALLAS,
-    )
+    # large swarms resolve to the portable XLA stencil on the CPU test
+    # harness (the GPU rule is pinned below)
+    assert SimParams(n_cells=10000).resolved_backend() == ForceBackend.STENCIL
     assert (
         SimParams(n_cells=10000, force_backend=ForceBackend.DENSE).resolved_backend()
         == ForceBackend.DENSE
+    )
+
+
+@pytest.mark.parametrize(
+    "platform,n,want",
+    [
+        ("gpu", 300, "DENSE"),
+        ("gpu", GPU_DENSE_MAX_BOTS, "DENSE"),
+        ("gpu", GPU_DENSE_MAX_BOTS + 1, "PALLAS"),
+        ("gpu", 10_000, "PALLAS"),
+        ("cpu", 2048, "DENSE"),
+        ("cpu", 2049, "STENCIL"),
+    ],
+)
+def test_auto_backend_by_platform(monkeypatch, platform, n, want):
+    """AUTO resolution per platform: on the GPU the DENSE/table-loop
+    crossover measured on the card; on the CPU the portable rule."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert SimParams(n_cells=n).resolved_backend() == ForceBackend[want]
+    # an explicit backend is never re-resolved
+    assert (
+        SimParams(n_cells=n, force_backend=ForceBackend.CELLGRID)
+        .resolved_backend() == ForceBackend.CELLGRID
+    )
+
+
+@pytest.mark.parametrize("platform", ["rocm", "metal"])
+def test_auto_backend_unknown_platform_raises(monkeypatch, platform):
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    with pytest.raises(ValueError, match=platform):
+        SimParams(n_cells=5000).resolved_backend()
+    # an explicit backend still works there
+    assert (
+        SimParams(n_cells=5000, force_backend=ForceBackend.DENSE)
+        .resolved_backend() == ForceBackend.DENSE
     )
 
 

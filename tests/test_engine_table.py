@@ -103,33 +103,22 @@ def test_seg_aligned_fast_path_matches_legacy():
     """The amortized-cond segment schedule must be physics-identical to the
     per-step traced-cond schedule: gates can only fire on seg multiples, so
     statically ungating the other steps changes nothing but the cond cost.
-
-    PBOT_MEGA=0: this asserts BITWISE equality between two gate schedules
-    of the same compiled ops — the megakernel (default-on for this table
-    size, only on the seg-aligned path) is a different Mosaic program and
-    can never be bitwise against XLA; its tolerance-level equivalence is
-    covered by test_megakernel."""
-    import os
-
+    Both schedules run the same compiled ops, so the check is BITWISE."""
     from particlerobotsimulations_tpu.engine_table import gate_seg
 
     # cog every 8 steps, phase every 12 -> seg = gcd = 4 = slot_rebuild_steps
     p = params_(n_cells=128, centroid_int=0.08, phase_update_interval=0.12)
     assert gate_seg(p.validate()) == 4
-    os.environ["PBOT_MEGA"] = "0"
-    try:
-        run = make_run_chunk_table(p)
+    run = make_run_chunk_table(p)
 
-        def state0():
-            # fresh per call: run_chunk donates its input buffers
-            return jitter(Simulation(p).state)
+    def state0():
+        # fresh per call: run_chunk donates its input buffers
+        return jitter(Simulation(p).state)
 
-        # 26 = 6 segments + 2 remainder steps; crosses cog gates at 8,16,24
-        # and phase gates at 12,24
-        legacy = run(state0(), 26, False)
-        fast = run(state0(), 26, True)
-    finally:
-        os.environ.pop("PBOT_MEGA", None)
+    # 26 = 6 segments + 2 remainder steps; crosses cog gates at 8,16,24
+    # and phase gates at 12,24
+    legacy = run(state0(), 26, False)
+    fast = run(state0(), 26, True)
     for field in ("pos", "vel", "rad", "phase", "centroid_ring"):
         np.testing.assert_array_equal(
             np.asarray(getattr(fast, field)),
@@ -140,21 +129,14 @@ def test_seg_aligned_fast_path_matches_legacy():
 
 
 def test_seg_aligned_fast_path_batched():
-    # PBOT_MEGA=0 for the same bitwise-schedule reason as the test above
-    import os
-
     from particlerobotsimulations_tpu.engine_table import gate_seg
     from particlerobotsimulations_tpu.parallel.sweep import make_batch_state
 
     p = params_(n_cells=96, centroid_int=0.08, phase_update_interval=0.12)
     assert gate_seg(p.validate()) == 4
-    os.environ["PBOT_MEGA"] = "0"
-    try:
-        run = make_run_chunk_table_batched(p)
-        legacy = run(make_batch_state(p, seeds=[0, 1]), 14, False)
-        fast = run(make_batch_state(p, seeds=[0, 1]), 14, True)
-    finally:
-        os.environ.pop("PBOT_MEGA", None)
+    run = make_run_chunk_table_batched(p)
+    legacy = run(make_batch_state(p, seeds=[0, 1]), 14, False)
+    fast = run(make_batch_state(p, seeds=[0, 1]), 14, True)
     for field in ("pos", "vel", "rad", "phase"):
         np.testing.assert_array_equal(
             np.asarray(getattr(fast, field)),
@@ -163,76 +145,28 @@ def test_seg_aligned_fast_path_batched():
         )
 
 
-def test_deferred_fallback_groups_bitwise():
-    """The deferred-fallback group schedule (unconditional incremental
-    rebuild + one adopt-or-redo cond per GR-block group) is BITWISE
-    identical to the legacy per-step-cond schedule: adopt equals the
-    cond-taken incremental, and a redo re-runs the group through the
-    regular blocks, reproducing the same deterministic incrementals and
-    the same exact fallback.  PBOT_MEGA=0 keeps the small table on the
-    non-mega deferred path (the megakernel is a different program)."""
-    import os
-
-    from particlerobotsimulations_tpu.engine_table import gate_seg
-
-    # seg = gcd(32, 64) = 32, k = 4 -> bps - 1 = 7 = one GR=7 group
-    p = params_(n_cells=128, centroid_int=0.32, phase_update_interval=0.64)
-    assert gate_seg(p.validate()) == 32
-
-    os.environ["PBOT_MEGA"] = "0"
-    try:
-        run = make_run_chunk_table(p)
-
-        def state0(kick: float):
-            st = jitter(Simulation(p).state)
-            if kick:
-                # a >1-cell-per-rebuild-window mover: every group's ok
-                # fails and the redo path must reproduce the legacy
-                # trajectory exactly
-                import jax.numpy as jnp
-
-                kickv = jnp.zeros_like(st.vel).at[7, 0].set(kick)
-                st = st._replace(vel=st.vel + kickv)
-            return st
-
-        for kick in (0.0, 60.0):
-            legacy = run(state0(kick), 70, False)
-            fast = run(state0(kick), 70, True)
-            for field in ("pos", "vel", "rad", "phase", "centroid_ring"):
-                np.testing.assert_array_equal(
-                    np.asarray(getattr(fast, field)),
-                    np.asarray(getattr(legacy, field)),
-                    err_msg=f"{field} kick={kick}",
-                )
-            assert int(fast.step) == 70
-    finally:
-        os.environ.pop("PBOT_MEGA", None)
-
-
 def test_nounroll_body_matches_unrolled():
     """The large-table scan-body form (PBOT_UNROLL_BODY=0: inner scan over
     the k-1 gateless steps, with the ungated entry step FOLDED into the
     scan — the compile-containment schedule tables > 2^20 rows use) must
-    reproduce the default unrolled schedule, on both the deferred-group
-    fast path and the forced-redo path.  The two are different XLA
-    programs, so tolerance-level agreement, not bitwise (FMA contraction
-    flips 1-ulp roundings across program shapes)."""
+    reproduce the default unrolled schedule, in a calm run and in one
+    where a fast mover crosses cells between rebuilds.  The two are
+    different XLA programs, so tolerance-level agreement, not bitwise (FMA
+    contraction flips 1-ulp roundings across program shapes)."""
     import os
 
     from particlerobotsimulations_tpu.engine_table import gate_seg
 
-    # seg = gcd(32, 64) = 32, k = 4 -> bps - 1 = 7 = one GR=7 group
+    # seg = gcd(32, 64) = 32, k = 4 -> one gated block + 7 ungated blocks
     p = params_(n_cells=128, centroid_int=0.32, phase_update_interval=0.64)
     assert gate_seg(p.validate()) == 32
 
-    os.environ["PBOT_MEGA"] = "0"
+    run_unrolled = make_run_chunk_table(p)
+    os.environ["PBOT_UNROLL_BODY"] = "0"
     try:
-        run_unrolled = make_run_chunk_table(p)
-        os.environ["PBOT_UNROLL_BODY"] = "0"
         run_scan = make_run_chunk_table(p)
     finally:
         os.environ.pop("PBOT_UNROLL_BODY", None)
-        os.environ.pop("PBOT_MEGA", None)
 
     def state0(kick: float):
         st = jitter(Simulation(p).state)
@@ -243,11 +177,11 @@ def test_nounroll_body_matches_unrolled():
             st = st._replace(vel=st.vel + kickv)
         return st
 
-    # 32 steps = exactly one segment: gated entry block + one GR=7 deferred
-    # group.  The 1-ulp FMA seeds amplify chaotically (measured: 1.5e-8 at
-    # 4 steps, 1.6e-5 at 32, 2e-2 at 70) — one segment is the longest
-    # horizon where per-bot tolerances stay meaningful.
-    for kick in (0.0, 60.0):  # 60: every group fails -> folded redo path
+    # 32 steps = exactly one segment.  The 1-ulp FMA seeds amplify
+    # chaotically (measured: 1.5e-8 at 4 steps, 1.6e-5 at 32, 2e-2 at 70)
+    # — one segment is the longest horizon where per-bot tolerances stay
+    # meaningful.
+    for kick in (0.0, 60.0):  # 60: a bot crosses cells every rebuild
         a = run_unrolled(state0(kick), 32, True)
         b = run_scan(state0(kick), 32, True)
         np.testing.assert_allclose(
@@ -260,44 +194,6 @@ def test_nounroll_body_matches_unrolled():
             err_msg=f"vel kick={kick}",
         )
         assert int(b.step) == 32
-
-
-def test_deferred_fallback_groups_bitwise_batched():
-    """Batched twin of the deferred-group bitwise check: one scene gets a
-    >1-cell-per-window kick so every group's all-scenes ok fails and the
-    redo must reproduce the legacy batched schedule (exact fallback for
-    ALL scenes) exactly; without the kick every group adopts."""
-    import os
-
-    from particlerobotsimulations_tpu.engine_table import gate_seg
-    from particlerobotsimulations_tpu.parallel.sweep import make_batch_state
-
-    p = params_(n_cells=128, centroid_int=0.32, phase_update_interval=0.64)
-    assert gate_seg(p.validate()) == 32
-
-    os.environ["PBOT_MEGA"] = "0"
-    try:
-        run = make_run_chunk_table_batched(p)
-
-        def batch0(kick: float):
-            b = jax.vmap(jitter)(make_batch_state(p, seeds=[0, 1]))
-            if kick:
-                kickv = jnp.zeros_like(b.vel).at[1, 7, 0].set(kick)
-                b = b._replace(vel=b.vel + kickv)
-            return b
-
-        for kick in (0.0, 60.0):
-            legacy = run(batch0(kick), 70, False)
-            fast = run(batch0(kick), 70, True)
-            for field in ("pos", "vel", "rad", "phase", "centroid_ring"):
-                np.testing.assert_array_equal(
-                    np.asarray(getattr(fast, field)),
-                    np.asarray(getattr(legacy, field)),
-                    err_msg=f"{field} kick={kick}",
-                )
-            assert int(fast.step[0]) == 70
-    finally:
-        os.environ.pop("PBOT_MEGA", None)
 
 
 def test_gate_seg_guards():
@@ -337,16 +233,16 @@ def test_table_loop_batched_matches_unbatched():
         )
 
 
-def test_incremental_rebuild_invariants():
-    # after an incremental rebuild every bot is present exactly once, sits in
-    # the lane matching its true (wrapped) cell, and field rows are intact
+def test_rebuild_invariants():
+    # after a slot rebuild every bot is present exactly once, sits in the
+    # lane matching its true (wrapped) cell, its slot is a prefix rank of
+    # that cell, and field rows are intact
     from particlerobotsimulations_tpu.engine_table import (
-        TABLE_FIELDS, _geometry, enter_table, make_table_step, _gates,
+        _gates, _geometry, _rebuild, enter_table, make_table_step,
     )
-    from particlerobotsimulations_tpu.ops.table_rebuild import incremental_rebuild
 
     p = params_(n_cells=200)
-    g, cap = p.resolved_grid_dim(), p.cell_capacity
+    g = p.resolved_grid_dim()
     total, total_ext, n_pad = _geometry(p)
     sim = Simulation(p)
     ts = jax.jit(lambda s: enter_table(p, s))(sim.state)
@@ -354,59 +250,39 @@ def test_incremental_rebuild_invariants():
     for i in range(4):  # drift positions a little
         ts = step(ts, *_gates(p, ts.step), jnp.asarray(False))
 
-    new_fields, ok = incremental_rebuild(p, ts.fields, TABLE_FIELDS, ts.origin)
-    assert bool(ok)
-
-    val = np.asarray(new_fields["val"][:total]) > 0.5
-    bid = np.asarray(new_fields["bid"][:total])[val].astype(int)
+    new = jax.jit(lambda t: _rebuild(p, t))(ts)
+    f = new.fields
+    val = np.asarray(f["val"][:total]) > 0.5
+    bid = np.asarray(f["bid"][:total])[val].astype(int)
     assert len(bid) == p.n_cells and len(np.unique(bid)) == p.n_cells
 
-    # row lane == true wrapped cell
+    # row lane == true wrapped cell under the re-anchored origin
     h = p.cutoff()
-    o = np.asarray(ts.origin)
-    px = np.asarray(new_fields["px"][:total])[val]
-    py = np.asarray(new_fields["py"][:total])[val]
+    o = np.asarray(new.origin)
+    px = np.asarray(f["px"][:total])[val]
+    py = np.asarray(f["py"][:total])[val]
     lane = (np.arange(total) % (g * g))[val]
-    assert (
-        (np.floor((px - o[0]) / h).astype(int) % g) == lane % g
-    ).all()
-    assert (
-        (np.floor((py - o[1]) / h).astype(int) % g) == lane // g
-    ).all()
+    assert ((np.floor((px - o[0]) / h).astype(int) % g) == lane % g).all()
+    assert ((np.floor((py - o[1]) / h).astype(int) % g) == lane // g).all()
 
-    # rows intact: same multiset of (bid -> phase/rad) as before
+    # occupied slots are a prefix of every cell (the force kernel reads
+    # rad > 0 as the occupancy flag and counts on it)
+    occ = (np.asarray(f["val"][:total]) > 0.5).reshape(-1, g * g)
+    assert (occ[1:] <= occ[:-1]).all()
+
+    # rows intact: same multiset of (bid -> rad) as before
     oldv = np.asarray(ts.fields["val"][:total]) > 0.5
     old_bid = np.asarray(ts.fields["bid"][:total])[oldv].astype(int)
     old_rad = np.asarray(ts.fields["rad"][:total])[oldv]
-    new_rad = np.asarray(new_fields["rad"][:total])[val]
+    new_rad = np.asarray(f["rad"][:total])[val]
     np.testing.assert_array_equal(
         old_rad[np.argsort(old_bid)], new_rad[np.argsort(bid)]
     )
 
-
-def test_incremental_rebuild_fallback_on_far_move():
-    from particlerobotsimulations_tpu.engine_table import (
-        TABLE_FIELDS, _geometry, enter_table,
-    )
-    from particlerobotsimulations_tpu.ops.table_rebuild import incremental_rebuild
-
-    p = params_(n_cells=64)
-    total, _, _ = _geometry(p)
-    sim = Simulation(p)
-    ts = jax.jit(lambda s: enter_table(p, s))(sim.state)
-    # teleport one occupied row 3 cells away -> incremental must refuse
-    f = dict(ts.fields)
-    occ = int(np.argmax(np.asarray(f["val"][:total]) > 0.5))
-    f["px"] = f["px"].at[occ].add(3.0 * p.cutoff())
-    _, ok = incremental_rebuild(p, f, TABLE_FIELDS, ts.origin)
-    assert not bool(ok)
-
-
 def test_rebuild_fallback_recovers_mid_run():
-    # drive the swarm > 1 cell per rebuild interval WITHIN one chunk: the
-    # incremental rebuild must refuse (moved_far / edge guard) and the
-    # exact fallback re-anchors — the run continues healthy with every bot
-    # still tracked
+    # drive the swarm > 1 cell per rebuild interval WITHIN one chunk: every
+    # rebuild re-anchors the grid on the moved blob — the run continues
+    # healthy with every bot still tracked
     from particlerobotsimulations_tpu.state import active_mask
 
     p = params_(n_cells=64)
@@ -430,8 +306,8 @@ def test_rebuild_fallback_recovers_mid_run():
 def test_overflow_spill_sublanes():
     # 24 bots crammed into one cell with overflow_slots=8: 16 go to the
     # force-visible sublanes, 8 to the spill rows (active but forceless),
-    # nobody parks; as the overlap explosion disperses them, compaction
-    # promotes the spilled rows back into force-visible slots
+    # nobody parks; as the overlap explosion disperses them, the slot
+    # rebuilds promote the spilled rows back into force-visible slots
     from particlerobotsimulations_tpu.engine_table import (
         _geometry, enter_table, make_run_chunk_table,
     )
@@ -541,22 +417,17 @@ def test_block_scan_rebuild_schedules():
 
 def test_undersized_grid_rejected():
     """A user-set grid_dim too small for the swarm would alias wrapped
-    cells and silently corrupt the edge-guarded candidate set — Simulation
-    must refuse it up front (the auto grid sizes itself correctly)."""
-    import os
-
-    os.environ["PBOT_MEGA"] = "0"  # irrelevant here; keep compile tiny
-    try:
-        p = SimParams(
-            n_cells=2000, n_dead=0, config=Config.HEX, grid_dim=16,
-            force_backend=ForceBackend.PALLAS,
-        )
-        with pytest.raises(ValueError, match="grid_dim"):
-            Simulation(p)
-        # the same swarm on the auto grid is accepted
-        Simulation(p.replace(grid_dim=0))
-    finally:
-        os.environ.pop("PBOT_MEGA", None)
+    cells and overflow their capacity — Simulation must refuse it up front
+    (the auto grid sizes itself correctly)."""
+    # 3000 HEX bots span ~18 cells of a 16-cell table
+    p = SimParams(
+        n_cells=3000, n_dead=0, config=Config.HEX, grid_dim=16,
+        force_backend=ForceBackend.PALLAS,
+    )
+    with pytest.raises(ValueError, match="grid_dim"):
+        Simulation(p)
+    # the same swarm on the auto grid is accepted
+    Simulation(p.replace(grid_dim=0))
 
 
 def test_adaptive_rebuild_cadence():

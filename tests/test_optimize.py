@@ -42,7 +42,7 @@ def grad_with_backend(p, state, backend, n_steps=40):
 
 
 def test_pallas_custom_vjp_matches_dense_grads():
-    # custom VJP (Mosaic fwd in interpret mode + XLA-stencil bwd) must give
+    # custom VJP (kernel fwd in interpret mode + XLA-stencil bwd) must give
     # the same phase gradients as the dense path on a small blob
     from particlerobotsimulations_tpu import ForceBackend
 

@@ -119,14 +119,10 @@ def test_scene_assignment_and_min_d():
 
 
 def test_eligibility_and_strategy_choice(monkeypatch):
-    from particlerobotsimulations_tpu.parallel import sweep as sweep_mod
-
-    # the packed arm is TPU-gated; pretend we are on the TPU (and check
-    # the CPU default never picks packed)
+    """Packed is explicit-only: AUTO never picks it, whatever the union
+    size; eligibility still guards the explicit request."""
     monkeypatch.delenv("PBOT_SWEEP_STRATEGY", raising=False)
     p = scene_params()
-    assert choose_sweep_strategy(p, 256, None) != "packed"  # CPU platform
-    monkeypatch.setattr(sweep_mod, "_platform_is_tpu", lambda: True)
     assert packed_eligible(p)
     assert not packed_eligible(p.replace(n_dead=3))
     assert not packed_eligible(p.replace(n_dead=-1))       # payload
@@ -134,13 +130,9 @@ def test_eligibility_and_strategy_choice(monkeypatch):
     assert not packed_eligible(
         p.replace(circle_obstacles=((0.0, 0.0, 1.0),))
     )
-    # AUTO: packed once the union reaches the measured amortization
-    # threshold (small-scene band, union >= 16384)
-    assert choose_sweep_strategy(p, 256, None) == "packed"
-    # below the union threshold: the mega band keeps sequential
-    assert choose_sweep_strategy(p, 2, None) == "sequential"
-    # ineligible scenarios never pick packed (2000-bot scenes are past the
-    # megakernel band, so the non-packed choice there is batched)
+    assert choose_sweep_strategy(p, 256, None) == "batched"
+    assert choose_sweep_strategy(p, 2, None) == "batched"
+    assert choose_sweep_strategy(p, 1, None) == "sequential"
     assert (
         choose_sweep_strategy(p.replace(n_cells=2000, n_dead=3), 64, None)
         == "batched"

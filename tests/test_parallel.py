@@ -45,55 +45,37 @@ def test_sweep_sharded_equals_unsharded(eight_devices):
 
 
 def test_sweep_strategy_choice(monkeypatch):
-    """Regression-pin the execution-strategy policy (measured on TPU,
-    docs/RESULTS.md "Sweep execution strategy"): on one device, sequential
-    single-scene chunks ONLY in the megakernel-eligible band (PALLAS, G=16
-    tables) where the vmapped span grid repeats per-scene kernel cost;
-    batched everywhere else and always with a mesh; env knob forces."""
-    from particlerobotsimulations_tpu.ops.megakernel import mega_eligible
-    from particlerobotsimulations_tpu.parallel import sweep as sweep_mod
+    """Regression-pin the execution-strategy policy: a mesh gives batched
+    (the batch is the parallelism axis), one scene gives sequential,
+    anything else batched — whatever the backend or scene size; AUTO never
+    picks packed; the env knob forces a strategy."""
     from particlerobotsimulations_tpu.parallel.sweep import (
         choose_sweep_strategy,
     )
 
     monkeypatch.delenv("PBOT_SWEEP_STRATEGY", raising=False)
-    # the packed arm is TPU-gated (pallas interpret mode on CPU would be
-    # catastrophic); pretend we are on the TPU to pin the full policy
-    monkeypatch.setattr(sweep_mod, "_platform_is_tpu", lambda: True)
-    # megakernel band (PALLAS, G=16): sequential
-    p_mega = small_params(
+    p_small = small_params(
         n_cells=128, force_backend=ForceBackend.PALLAS
     ).validate()
-    assert mega_eligible(p_mega)
-    assert choose_sweep_strategy(p_mega, 8, None) == "sequential"
-    # outside the band (bigger grid): batched — packed only wins in the
-    # small-scene bands (measured crossover, docs/RESULTS.md), so the
-    # regular-table band never picks it even with a large union
     p_big = small_params(
         n_cells=4000, force_backend=ForceBackend.PALLAS
     ).validate()
-    assert not mega_eligible(p_big)
-    assert choose_sweep_strategy(p_big, 8, None) == "batched"
-    # small-scene band + large union: packed (unless packed-ineligible —
-    # dead-cell injection is per-scene state the tiled union cannot share)
-    assert choose_sweep_strategy(p_mega, 256, None) == "packed"
-    # packed-ineligible (dead-cell injection is per-scene state the tiled
-    # union cannot share): falls back to the mega band's sequential
-    assert (
-        choose_sweep_strategy(p_mega.replace(n_dead=3), 256, None)
-        == "sequential"
-    )
-    # non-PALLAS backends: batched (chunk dispatch dominates sequential)
     p = small_params()
-    assert choose_sweep_strategy(p, 8, None) == "batched"
-    # single scene: nothing to batch
-    assert choose_sweep_strategy(p, 1, None) == "sequential"
+    for q in (p, p_small, p_big):
+        assert choose_sweep_strategy(q, 8, None) == "batched"
+        assert choose_sweep_strategy(q, 256, None) == "batched"
+        # single scene: nothing to batch
+        assert choose_sweep_strategy(q, 1, None) == "sequential"
     mesh = default_mesh()
-    assert choose_sweep_strategy(p_mega, 8, mesh) == "batched"
-    monkeypatch.setenv("PBOT_SWEEP_STRATEGY", "batched")
-    assert choose_sweep_strategy(p_mega, 8, None) == "batched"
+    assert choose_sweep_strategy(p_small, 8, mesh) == "batched"
+    assert choose_sweep_strategy(p_small, 1, mesh) == "batched"
     monkeypatch.setenv("PBOT_SWEEP_STRATEGY", "sequential")
     assert choose_sweep_strategy(p_big, 8, None) == "sequential"
+    monkeypatch.setenv("PBOT_SWEEP_STRATEGY", "packed")
+    assert choose_sweep_strategy(p_small, 8, None) == "packed"
+    monkeypatch.setenv("PBOT_SWEEP_STRATEGY", "batched")
+    assert choose_sweep_strategy(p_small, 1, None) == "batched"
+    monkeypatch.setenv("PBOT_SWEEP_STRATEGY", "sequential")
     with pytest.raises(ValueError):
         choose_sweep_strategy(p, 8, mesh)  # sequential can't shard a mesh
 
@@ -346,10 +328,10 @@ def test_sharded_table_production_shape(eight_devices):
     boundary grid rows across shards throughout the run.
 
     The drift (6 u/s, decaying under kinetic friction) keeps per-window
-    motion (0.24 u) under one cell (0.517 u) so the run stays on the
-    incremental compaction path: this exercises cross-shard mover hand-off
-    (owner drops, neighbor places from its halo window), not the exact
-    global fallback (covered by test_sharded_table_fallback_recovers).
+    motion (0.24 u) under one cell (0.517 u): this exercises bots crossing
+    shard boundaries between rebuilds, which the replicated rebuild hands
+    to their new owner (the recovery path is covered by
+    test_sharded_table_fallback_recovers).
 
     Two-tier assertion, because the contact dynamics are chaotic: the
     sharded loop's non-Newton summation order seeds ~1e-6 differences that
@@ -414,10 +396,10 @@ def test_sharded_table_production_shape(eight_devices):
 
 
 def test_sharded_table_overflow_spill(eight_devices):
-    """Sharded rebuilds with ACTIVE overflow-spill sublanes: cell_capacity 8
+    """Sharded rebuilds with ACTIVE overflow-spill slots: cell_capacity 8
     with 8 spill rows makes the hex blob (12-14 bots/cell) populate the
-    spill sublanes everywhere; the sharded loop must move them across
-    rebuilds (and shard boundaries, via the same compaction windows)
+    spill slots everywhere; the sharded loop must move them across
+    rebuilds (and shard boundaries)
     identically to the unsharded loop."""
     from particlerobotsimulations_tpu.engine_table import make_run_chunk_table
     from particlerobotsimulations_tpu.parallel.spatial_table import (
